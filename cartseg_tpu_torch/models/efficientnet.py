@@ -6,7 +6,8 @@ the 5 smp feature stages at strides 2/4/8/16/32 with channels
 `efficientnet_b0` (conv_stem, bn1, blocks.{g}.{r}.conv_pw/conv_dw/
 se.conv_reduce/se.conv_expand/conv_pwl/bn1..bn3), which is what the
 reference checkpoints hold (src/train_with_pretrained.py:317-325), so a
-reference `.pth` loads with plain `load_state_dict`.
+reference `.pth` loads with plain `load_state_dict`. BN is
+models/norm.py's `BatchNorm2d` (flax's running-variance update).
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from cartseg_tpu_torch.models.norm import BatchNorm2d
 
 # (expand_ratio, out_channels, num_repeats, stride, kernel_size)
 B0_BLOCKS = (
@@ -53,10 +56,10 @@ class DepthwiseSeparableConv(nn.Module):
         super().__init__()
         self.conv_dw = nn.Conv2d(cin, cin, k, stride, k // 2, groups=cin,
                                  bias=False)
-        self.bn1 = nn.BatchNorm2d(cin, eps=BN_EPS)
+        self.bn1 = BatchNorm2d(cin, eps=BN_EPS)
         self.se = SqueezeExcite(cin, cin)
         self.conv_pw = nn.Conv2d(cin, cout, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(cout, eps=BN_EPS)
+        self.bn2 = BatchNorm2d(cout, eps=BN_EPS)
         self.has_skip = stride == 1 and cin == cout
 
     def forward(self, x):
@@ -73,13 +76,13 @@ class InvertedResidual(nn.Module):
         super().__init__()
         mid = cin * expand
         self.conv_pw = nn.Conv2d(cin, mid, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(mid, eps=BN_EPS)
+        self.bn1 = BatchNorm2d(mid, eps=BN_EPS)
         self.conv_dw = nn.Conv2d(mid, mid, k, stride, k // 2, groups=mid,
                                  bias=False)
-        self.bn2 = nn.BatchNorm2d(mid, eps=BN_EPS)
+        self.bn2 = BatchNorm2d(mid, eps=BN_EPS)
         self.se = SqueezeExcite(mid, cin)
         self.conv_pwl = nn.Conv2d(mid, cout, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(cout, eps=BN_EPS)
+        self.bn3 = BatchNorm2d(cout, eps=BN_EPS)
         self.has_skip = stride == 1 and cin == cout
 
     def forward(self, x):
@@ -95,7 +98,7 @@ class EfficientNetEncoder(nn.Module):
     def __init__(self):
         super().__init__()
         self.conv_stem = nn.Conv2d(3, 32, 3, 2, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(32, eps=BN_EPS)
+        self.bn1 = BatchNorm2d(32, eps=BN_EPS)
         groups = []
         cin = 32
         for exp, cout, reps, stride, k in B0_BLOCKS:

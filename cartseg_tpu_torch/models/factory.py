@@ -1,6 +1,9 @@
-"""Model factory (counterpart of cartseg_tpu/models/factory.py:27-57)."""
+"""Model factory and parameter groups (counterpart of
+cartseg_tpu/models/factory.py:27-84)."""
 
 from __future__ import annotations
+
+from typing import Dict
 
 import torch.nn as nn
 
@@ -19,3 +22,18 @@ def build_model(encoder_name: str = "efficientnet-b0",
             f"encoder {encoder_name!r} is not ported yet (ROADMAP.md "
             "Queue 1 item 2: models); only efficientnet-b0 is")
     raise ValueError(f"unknown encoder {encoder_name!r}")
+
+
+def param_groups(model: nn.Module) -> Dict[str, str]:
+    """Parameter name -> 'encoder' | 'decoder' | 'head', by the top-level
+    module, as the JAX `param_groups` labels its param subtrees (the
+    basis of freeze phases and per-group learning rates)."""
+    def label(name: str) -> str:
+        top = name.split(".", 1)[0]
+        if top == "encoder":
+            return "encoder"
+        if top == "segmentation_head" or top.startswith("aux_head"):
+            return "head"
+        return "decoder"
+
+    return {n: label(n) for n, _ in model.named_parameters()}

@@ -19,10 +19,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from cartseg_tpu_torch.models.norm import BatchNorm2d
+
 
 def _conv_bn_relu(cin: int, cout: int) -> nn.Sequential:
     return nn.Sequential(nn.Conv2d(cin, cout, 3, 1, 1, bias=False),
-                         nn.BatchNorm2d(cout), nn.ReLU(inplace=True))
+                         BatchNorm2d(cout), nn.ReLU(inplace=True))
 
 
 class DecoderBlock(nn.Module):

@@ -33,10 +33,13 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {"cc": 0, "reach": 0, "median": 0}
+LAUNCHES = {"cc": 0, "reach": 0, "median": 0, "edt": 0, "lsr_fwd": 0,
+            "lsr_bwd": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     # (fg, labels, B, H, W, connectivity, stream)
     "cartseg_cc_label": (_P, _P, _I, _I, _I, _I, _P),
@@ -44,6 +47,12 @@ _SIGNATURES = {
     "cartseg_reach": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # (x, hist scratch, state scratch, out, B, N, stream)
     "cartseg_median_nonneg": (_P, _P, _P, _P, _I, _I, _P),
+    # (seeds, state a, state b, dist, B, H, W, stream)
+    "cartseg_edt": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # (x, labels, loss, n, C, lb_pos, lb_neg, ignore, stream)
+    "cartseg_lsr_fwd": (_P, _P, _P, _L, _I, _F, _F, _I, _P),
+    # (x, labels, g, grad, n, C, lb_pos, lb_neg, ignore, stream)
+    "cartseg_lsr_bwd": (_P, _P, _P, _P, _L, _I, _F, _F, _I, _P),
 }
 
 

@@ -146,6 +146,29 @@ def read_rgb(path) -> Optional[np.ndarray]:
     return np.ascontiguousarray(img[..., :3])
 
 
+def read_gray(path) -> Optional[np.ndarray]:
+    """HxW uint8 (a mask), or None where cv2.imread would give None.
+    Without cv2 only gray (and gray+alpha) PNGs are read: cv2's colour
+    to gray conversion is not reproduced."""
+    path = Path(path)
+    if have_cv2():
+        import cv2
+
+        return cv2.imread(str(path), cv2.IMREAD_GRAYSCALE)
+    if path.suffix.lower() != ".png":
+        raise RuntimeError(
+            f"reading {path.name} needs OpenCV (cv2), which is not "
+            "installed; without it only PNG masks are read")
+    img = decode_png(path.read_bytes())
+    if img.ndim == 3 and img.shape[2] == 2:
+        return np.ascontiguousarray(img[..., 0])
+    if img.ndim != 2:
+        raise RuntimeError(
+            f"{path.name} is a colour PNG; reading it as a gray mask "
+            "needs OpenCV (cv2), which is not installed")
+    return img
+
+
 def write_png(path, image: np.ndarray) -> None:
     """Write HxW gray or HxWx3 RGB uint8 as PNG (cv2.imwrite when
     installed, as the JAX workload writes, else the zlib codec)."""

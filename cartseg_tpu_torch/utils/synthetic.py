@@ -1,7 +1,7 @@
-"""Seeded synthetic inputs: masks for the CC checks and a PNG image tree
-for the pseudo-label workload (the counterpart of
-cartseg_tpu/data/dataset.py:make_synthetic_tree, written as PNG
-through utils/image_io so it needs no OpenCV)."""
+"""Seeded synthetic inputs: masks for the CC checks, a PNG image tree
+for the pseudo-label workload and a PNG image+mask tree for training
+(the counterparts of cartseg_tpu/data/dataset.py:make_synthetic_tree,
+written as PNG through utils/image_io so they need no OpenCV)."""
 
 from __future__ import annotations
 
@@ -98,3 +98,38 @@ def make_png_tree(root, n_sessions: int, per_session: int,
         for k in range(per_session):
             write_png(d / f"img_{k:03d}.png", frame(rng, hw))
     return images_root
+
+
+def make_png_pair_tree(root, n_sessions: int, per_session: int,
+                       hw: Tuple[int, int], seed: int = 0
+                       ) -> Tuple[Path, Path]:
+    """The training tree: images_root/session_XXX/img_YYY.png frames of
+    `hw` with blobs, and masks_root/session_XXX/img_YYY.png of the same
+    blobs in LETTERBOXED space (as the reference's masks were made and
+    the JAX make_synthetic_tree writes them). Returns (images_root,
+    masks_root)."""
+    from cartseg_tpu_torch.geometry import letterbox_side_pad
+
+    rng = np.random.default_rng(seed)
+    images_root, masks_root = Path(root) / "images", Path(root) / "masks"
+    h, w = hw
+    yy, xx = np.ogrid[:h, :w]
+    for s in range(n_sessions):
+        sess = f"session_{s:03d}"
+        (images_root / sess).mkdir(parents=True, exist_ok=True)
+        (masks_root / sess).mkdir(parents=True, exist_ok=True)
+        for k in range(per_session):
+            img = frame(rng, hw)
+            blob = np.zeros((h, w), bool)
+            for _ in range(int(rng.integers(1, 3))):
+                cy = rng.integers(h // 4, 3 * h // 4)
+                cx = rng.integers(w // 4, 3 * w // 4)
+                r = int(rng.integers(max(2, min(h, w) // 10),
+                                     max(3, min(h, w) // 4)))
+                blob |= (yy - cy) ** 2 + (xx - cx) ** 2 <= r * r
+            img[blob] = (img[blob] * 0.3 + np.array([200, 60, 60]) * 0.7
+                         ).astype(np.uint8)
+            write_png(images_root / sess / f"img_{k:03d}.png", img)
+            write_png(masks_root / sess / f"img_{k:03d}.png",
+                      letterbox_side_pad((blob * 255).astype(np.uint8)))
+    return images_root, masks_root

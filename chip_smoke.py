@@ -7,23 +7,38 @@ Phases, in order; any failure raises and the exit code is non-zero:
   1. the card's name and power limit (nvidia-smi); require_cuda();
   2. build the CUDA kernels from ops/cuda/csrc (nvcc), print the time;
   3. each kernel against its plain PyTorch version on the card, on the
-     same inputs, bit for bit (torch.equal after synchronize):
-     CC at 8- and 4-connectivity on [64,512,512] masks (blobs,
-     uniform noise p=0.45, all-background, all-foreground, a one-arm
-     512^2 spiral, cut rings); reach on the weak/strong maps of Canny
-     runs on the synthetic frames; the median on |p-0.5|*2 rows of
-     [64,262144], rows with many duplicates and all-zero rows;
-  4. the pseudo-label workload through its CLI entry point
-     (workloads/create_pseudo_labels.main) on a synthetic PNG tree of
-     2 sessions x 64 frames of 400x512 (letterboxed to exactly 512^2,
-     so no resize and no OpenCV), three efficientnet-b0 members from
-     seeded random init saved as .pth with a threshold sidecar, at
-     --batch_size 64 --img_size 512 --device cuda; every frame's mask,
-     prob file and CSV row must exist and every kernel must have been
-     launched by that run; then the card's program in fp32 against the
-     CPU's on a small input;
+     same inputs: CC at 8- and 4-connectivity on [64,512,512] masks
+     (blobs, uniform noise p=0.45, all-background, all-foreground, a
+     one-arm 512^2 spiral, cut rings); reach on the weak/strong maps of
+     Canny runs on the synthetic frames; the median on |p-0.5|*2 rows of
+     [64,262144], rows with many duplicates and all-zero rows; the EDT
+     on [6,512,512] GT boundaries of blob masks plus a no-seed, a
+     single-seed and an all-seed sample - all bit for bit (torch.equal
+     after synchronize); the LSR CE forward and backward on
+     [6,512,512,8] logits with labels 0..7 and every 7th row ignored,
+     loss atol 1e-5 and gradient atol 2e-6 at unit g;
+  4. the workloads through their CLI entry points, each with the launch
+     counts set to 0 just before it and read just after:
+     a. pseudo-labels (workloads/create_pseudo_labels.main) on a
+        synthetic PNG tree of 2 sessions x 64 frames of 400x512
+        (letterboxed to exactly 512^2, so no resize and no OpenCV),
+        three efficientnet-b0 members from seeded random init saved as
+        .pth with a threshold sidecar, at --batch_size 64 --img_size 512
+        --device cuda; every frame's mask, prob file and CSV row must
+        exist, and cc, reach and median must have been launched; then
+        the card's program in fp32 against the CPU's on a small input;
+     b. training (workloads/train_bce_dice_abl.main) on a synthetic PNG
+        image+mask tree of 5 sessions x 12 frames of 400x512, at the
+        workload's CONFIG (efficientnet-b0 UNet, bs6, 512^2, bf16
+        autocast, train_512) for --epochs 2 --device cuda; the CSV,
+        history, .pth, sidecar and .last.pth must exist with finite
+        losses, edt, lsr_fwd and lsr_bwd must have been launched, and
+        the .pth must load into the pseudo-labeller; then one fp32
+        train step on the card against the CPU's on a small input;
   5. timing with CUDA events: the pseudo-label program per bs64 batch,
-     and each kernel against its plain version at the path's shapes.
+     the train step at bs6@512^2 (device-resident batch, loader
+     excluded) and the ABL loss's share of it, and each kernel against
+     its plain version at the path's shapes.
 The line before the last holds the kernels' JSON record, the one before
 it the card's name and power limit, and the last line
 {"ok": true, "device": {...}}.
@@ -44,6 +59,7 @@ import torch
 
 B, S, SESSIONS = 64, 512, 2
 FRAME_HW = (512, 400)            # (h, w): side pad 40 -> 480, square 512
+TRAIN_SESSIONS, TRAIN_PER_SESSION, TRAIN_BS = 5, 12, 6
 SEED = 0
 KERNELS = {
     "cc": ("cartseg_tpu_torch/ops/cuda/csrc/cc.cu",
@@ -52,7 +68,16 @@ KERNELS = {
               "cartseg_tpu/ops/pallas/cc.py:181"),
     "median": ("cartseg_tpu_torch/ops/cuda/csrc/median.cu",
                "cartseg_tpu/ops/pallas/median.py:38"),
+    "edt": ("cartseg_tpu_torch/ops/cuda/csrc/edt.cu",
+            "cartseg_tpu/ops/pallas/edt.py:82"),
+    "lsr_fwd": ("cartseg_tpu_torch/ops/cuda/csrc/lsr.cu",
+                "cartseg_tpu/ops/pallas/lsr.py:38"),
+    "lsr_bwd": ("cartseg_tpu_torch/ops/cuda/csrc/lsr.cu",
+                "cartseg_tpu/ops/pallas/lsr.py:61"),
 }
+PSEUDO_KERNELS = ("cc", "reach", "median")
+TRAIN_KERNELS = ("edt", "lsr_fwd", "lsr_bwd")
+LSR_TOL = {"lsr_fwd": 1e-5, "lsr_bwd": 2e-6}
 
 
 def log(msg: str) -> None:
@@ -107,6 +132,34 @@ def cc_masks(rng: np.random.Generator) -> np.ndarray:
     m[62] = spiral_mask(S)
     m[63] = ring_cuts_mask(S)
     return m
+
+
+def edt_seeds(rng: np.random.Generator) -> np.ndarray:
+    """[6,512,512] bool: the GT boundaries of blob masks (as
+    losses/abl.py gt2boundary makes them), then a sample with no seed,
+    one with a single seed and one with every pixel a seed."""
+    from cartseg_tpu_torch.utils.synthetic import blob_masks
+
+    m = blob_masks(rng, (TRAIN_BS, S, S), n=6)
+    seeds = np.zeros_like(m)
+    seeds[:, :-1] |= m[:, :-1] != m[:, 1:]
+    seeds[:, :, :-1] |= m[:, :, :-1] != m[:, :, 1:]
+    seeds[3] = False
+    seeds[4] = False
+    seeds[4, 137, 401] = True
+    seeds[5] = True
+    return seeds
+
+
+def lsr_inputs(dev):
+    """[6*512*512, 8] logits, labels in 0..7 with every 7th row at the
+    ignore index 255, and an upstream gradient."""
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    n = TRAIN_BS * S * S
+    x = (torch.randn((n, 8), generator=g) * 3).to(dev)
+    lab = torch.randint(0, 8, (n,), generator=g)
+    lab[::7] = 255
+    return x, lab.to(dev), torch.randn((n,), generator=g).to(dev)
 
 
 def load_frames(root: Path) -> np.ndarray:
@@ -168,6 +221,29 @@ def phase_compare(frames: np.ndarray, dev) -> dict:
     x = x.to(dev)
     err["median"] = check_equal("median [64,262144]", median_rows(x),
                                 median_rows_plain(x))
+
+    from cartseg_tpu_torch.ops.cuda.edt import edt_batch_jfa, edt_batch_plain
+    from cartseg_tpu_torch.ops.cuda.lsr import (lsr_bwd, lsr_bwd_plain,
+                                                lsr_fwd, lsr_fwd_plain)
+
+    seeds = torch.from_numpy(edt_seeds(rng)).to(dev)
+    err["edt"] = check_equal("edt [6,512,512] (GT boundaries|none|single|"
+                             "all)", edt_batch_jfa(seeds),
+                             edt_batch_plain(seeds))
+    x, lab, _ = lsr_inputs(dev)
+    ones = torch.ones(x.shape[0], device=dev)
+    for name, got, want in (
+            ("lsr_fwd", lsr_fwd(x, lab, 0.2, 255),
+             lsr_fwd_plain(x, lab, 0.2, 255)),
+            ("lsr_bwd", lsr_bwd(x, lab, ones, 0.2, 255),
+             lsr_bwd_plain(x, lab, ones, 0.2, 255))):
+        torch.cuda.synchronize()
+        err[name] = float((got - want).abs().max())
+        if not err[name] <= LSR_TOL[name]:
+            raise AssertionError(f"{name}: max abs err {err[name]} above "
+                                 f"{LSR_TOL[name]}")
+        log(f"  {name} [6,512,512,8]: max abs err {err[name]:.3e} "
+            f"(tolerance {LSR_TOL[name]})")
     return err
 
 
@@ -192,7 +268,7 @@ def phase_workload(tmp: Path, dev) -> tuple:
     launches = dict(build.LAUNCHES)
     log(f"  workload: {result['accepted']} accepted, {wall:.1f} s wall "
         f"(host decode + PNG/npz encode included), launches {launches}")
-    for k in KERNELS:
+    for k in PSEUDO_KERNELS:
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched by the "
                                  "workload")
@@ -309,6 +385,226 @@ def phase_timing(ckpts, frames: np.ndarray, dev, card: str) -> dict:
     return {"program_ms": ms, "kernels": times}
 
 
+def phase_train_workload(tmp: Path, dev) -> tuple:
+    """The ABL training workload through its CLI at its CONFIG."""
+    from cartseg_tpu_torch.infer.engine import load_member
+    from cartseg_tpu_torch.ops.cuda import build
+    from cartseg_tpu_torch.train.engine import SCHEMAS
+    from cartseg_tpu_torch.utils.synthetic import make_png_pair_tree
+    from cartseg_tpu_torch.workloads import train_bce_dice_abl as cli
+
+    t0 = time.perf_counter()
+    ir, mr = make_png_pair_tree(tmp / "train", TRAIN_SESSIONS,
+                                TRAIN_PER_SESSION, FRAME_HW, seed=SEED)
+    log(f"  training tree: {TRAIN_SESSIONS}x{TRAIN_PER_SESSION} PNG "
+        f"frames+masks {FRAME_HW[1]}x{FRAME_HW[0]} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = tmp / "run_abl"
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = cli.main(["--images_root", str(ir), "--masks_root", str(mr),
+                       "--out_dir", str(out), "--epochs", "2",
+                       "--device", "cuda"], log=lambda m: log(f"    {m}"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    log(f"  train workload: 2 epochs in {wall:.1f} s wall (model init, "
+        f"PNG decode, val and the sweep included), launches {launches}")
+    for k in TRAIN_KERNELS:
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched by the "
+                                 "training workload")
+
+    with open(out / "training_metrics.csv") as f:
+        rows = list(csv.reader(f))
+    if rows[0] != SCHEMAS["abl"] or len(rows) != 3:
+        raise AssertionError(f"training_metrics.csv: header {rows[0]}, "
+                             f"{len(rows) - 1} rows")
+    if not all(np.isfinite(float(v)) for r in rows[1:] for v in r):
+        raise AssertionError(f"non-finite values in the CSV: {rows[1:]}")
+    hist = json.loads((out / "history.json").read_text())
+    pth = out / "model.pth"
+    for f in (pth, out / "model.threshold.json", out / "model.last.pth"):
+        if not f.exists():
+            raise AssertionError(f"{f.name} was not written")
+    member = load_member(pth, device=dev)
+    side = json.loads((out / "model.threshold.json").read_text())
+    if abs(member.threshold - result["threshold"]) > 1e-9 or \
+            abs(side["threshold"] - result["threshold"]) > 1e-9:
+        raise AssertionError("the .pth did not load with the sweep's "
+                             "threshold")
+    log(f"  train outputs: CSV {rows[1:]}, .pth + sidecar (threshold "
+        f"{member.threshold:.2f}) + .last.pth; the .pth loads into the "
+        "pseudo-labeller")
+    return launches, hist
+
+
+def _small_step_setup(device: str):
+    from cartseg_tpu_torch.train import LossSpec, TrainConfig, Trainer
+
+    cfg = TrainConfig(encoder="efficientnet-b0", img_size=(64, 64),
+                      batch_size=2, compute_dtype="float32", augment="none",
+                      imagenet_norm=True, seed=SEED, device=device,
+                      loss=LossSpec("bce_dice_abl", {"bce_weight": 0.5,
+                                                     "abl_weight": 0.1}))
+    tr = Trainer(cfg)
+    return tr, tr.init_state()
+
+
+def phase_train_reference(dev) -> None:
+    """One fp32 train step on the card against the CPU's (the plain
+    versions) from the same state on [2,64,64]: loss and components rel
+    1e-4, the whole gradient (read from the first moment) relative L2
+    1e-2. That gradient is sensitive to summation order: on the CPU alone
+    it moves by 1e-3 (64^2 bs2) to 4e-3 (128^2 bs4) in relative L2 when
+    only the thread count changes, and cuDNN sums in yet other orders."""
+    from cartseg_tpu_torch.device import set_fp32_policy
+
+    set_fp32_policy()
+    r = np.random.default_rng(SEED)
+    imgs = r.integers(0, 256, (2, 64, 64, 3)).astype(np.uint8)
+    yy, xx = np.mgrid[:64, :64]
+    m = np.zeros((2, 64, 64, 1), np.float32)
+    m[0, ..., 0] = (yy - 30) ** 2 + (xx - 26) ** 2 <= 15 ** 2
+    m[1, 10:40, 20:50, 0] = 1.0
+    imgs[m[..., 0] > 0] //= 3
+    outs = {}
+    sd = None
+    for d in ("cpu", str(dev)):
+        tr, st = _small_step_setup(d)
+        if sd is None:
+            sd = {k: v.clone() for k, v in st.model.state_dict().items()}
+        st.model.load_state_dict(sd)
+        loss, ok, comps = tr.train_step(
+            st, torch.from_numpy(imgs).to(d), torch.from_numpy(m).to(d),
+            torch.ones(2, device=d), [1e-4] * 3, [1.0] * 3, tr.group_ids(st))
+        outs[d] = (float(loss), {k: float(v) for k, v in comps.items()},
+                   torch.cat([v.reshape(-1).cpu()
+                              for v in st.opt.mu.values()]))
+    (lc, cc, gc), (lg, cg, gg) = outs["cpu"], outs[str(dev)]
+    gerr = float((gg - gc).norm() / gc.norm())
+    cerr = max(abs(cg[k] - cc[k]) / max(abs(cc[k]), 1e-7) for k in cc)
+    if abs(lg - lc) > 1e-4 * abs(lc) or cerr > 1e-4 or gerr > 1e-2:
+        raise AssertionError(f"card vs CPU train step: loss {lg} vs {lc}, "
+                             f"components rel err {cerr}, gradient rel "
+                             f"err {gerr}")
+    log(f"  card fp32 train step == CPU on [2,64,64]: loss {lg:.6f} vs "
+        f"{lc:.6f}, components rel err {cerr:.2e}, gradient rel L2 "
+        f"{gerr:.2e} (boundary_used {cg['boundary_used']})")
+
+
+def _busy_share(fn, n: int) -> float:
+    """Device busy share over n calls of fn: the summed durations of the
+    kernels in the profiler's trace over the host wall time of the
+    window (one stream, so kernels do not overlap)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA)
+    return busy / wall_us
+
+
+def phase_train_timing(dev, card: str, hist) -> dict:
+    """The train step at bs6@512^2 on a device-resident batch, the ABL's
+    share of it, and the EDT and LSR kernels against their plain
+    versions at the path's shapes."""
+    from cartseg_tpu_torch.losses.abl import active_boundary_loss
+    from cartseg_tpu_torch.ops.cuda import build
+    from cartseg_tpu_torch.ops.cuda.edt import edt_batch_jfa, edt_batch_plain
+    from cartseg_tpu_torch.ops.cuda.lsr import (lsr_bwd, lsr_bwd_plain,
+                                                lsr_fwd, lsr_fwd_plain)
+    from cartseg_tpu_torch.train import LossSpec, Trainer
+    from cartseg_tpu_torch.train.config import apply_cli_overrides
+    from cartseg_tpu_torch.workloads.train_bce_dice_abl import CONFIG
+
+    from cartseg_tpu_torch.utils.synthetic import blob_masks, frame
+
+    r = np.random.default_rng(SEED)
+    imgs = torch.from_numpy(np.stack([frame(r, (S, S))
+                                      for _ in range(TRAIN_BS)])).to(dev)
+    masks = torch.from_numpy(blob_masks(r, (TRAIN_BS, S, S), n=3)[..., None]
+                             .astype(np.float32)).to(dev)
+    sw = torch.ones(TRAIN_BS, device=dev)
+    cfg = apply_cli_overrides(CONFIG, ["--device", "cuda"])
+    steps = {}
+    for name, loss in (("bce_dice_abl", CONFIG.loss),
+                       ("bce_dice", LossSpec("bce_dice",
+                                             {"bce_weight": 0.5}))):
+        tr = Trainer(cfg.with_overrides(loss=loss))
+        st = tr.init_state()
+        gids = tr.group_ids(st)
+        steps[name] = (tr, st, gids)
+
+    def step(name):
+        tr, st, gids = steps[name]
+        return lambda: tr.train_step(st, imgs, masks, sw, [1e-4] * 3,
+                                     [1.0] * 3, gids)
+
+    for name in steps:
+        cuda_ms(step(name), 3)                    # warm-up, cuDNN autotune
+    a1 = cuda_ms(step("bce_dice_abl"), 20)
+    b1 = cuda_ms(step("bce_dice"), 20)
+    b2 = cuda_ms(step("bce_dice"), 20)
+    a2 = cuda_ms(step("bce_dice_abl"), 20)
+    step_ms, bce_ms = (a1 + a2) / 2, (b1 + b2) / 2
+    busy = _busy_share(step("bce_dice_abl"), 5)
+    log(f"  train step bs{TRAIN_BS}@{S}^2 (effnet-b0 UNet, bf16 autocast, "
+        f"train_512 augment, BCE+Dice+ABL, AdamW): {a1:.3f}/{a2:.3f} ms, "
+        f"{TRAIN_BS * 1000.0 / step_ms:.2f} img/s; the same step with "
+        f"BCE+Dice only {b1:.3f}/{b2:.3f} ms; ABL share "
+        f"{(step_ms - bce_ms) / step_ms:.4f}; device busy share "
+        f"{busy:.4f} [{card}]")
+
+    # the ABL alone, forward + backward, on logits of the step's shape
+    logits = (torch.randn((TRAIN_BS, S, S, 1), device=dev) * 2).requires_grad_()
+    tgt = masks[..., 0].to(torch.int32)
+
+    def abl_fwd_bwd():
+        loss, _ = active_boundary_loss(logits, tgt)
+        loss.backward()
+
+    abl_ms = cuda_ms(abl_fwd_bwd, 10)
+    log(f"  active_boundary_loss fwd+bwd alone [6,512,512,1]: "
+        f"{abl_ms:.3f} ms ({abl_ms / step_ms:.4f} of the step) [{card}]")
+
+    # the kernels at the path's shapes: GT boundaries of the step's masks
+    # and the [6,512,512,8] direction stack
+    from cartseg_tpu_torch.losses.abl import gt2boundary
+    seeds = gt2boundary(tgt).contiguous()
+    x, lab, g = lsr_inputs(dev)
+    cases = {
+        "edt": (lambda: edt_batch_jfa(seeds),
+                lambda: edt_batch_plain(seeds)),
+        "lsr_fwd": (lambda: lsr_fwd(x, lab, 0.2, 255),
+                    lambda: lsr_fwd_plain(x, lab, 0.2, 255)),
+        "lsr_bwd": (lambda: lsr_bwd(x, lab, g, 0.2, 255),
+                    lambda: lsr_bwd_plain(x, lab, g, 0.2, 255)),
+    }
+    times = {}
+    for name, (kern, plain) in cases.items():
+        p1 = cuda_ms(plain, 5)
+        k1 = cuda_ms(kern, 20)
+        k2 = cuda_ms(kern, 20)
+        p2 = cuda_ms(plain, 5)
+        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        log(f"  {name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/"
+            f"{p2:.4f} ms at the path's shapes [{card}]")
+    log(f"  epoch images_per_sec from the run's history (train + val + "
+        f"host sync, 48 train / 12 val images): "
+        f"{[h['images_per_sec'] for h in hist]} [{card}]")
+    build.reset_launch_counts()
+    return {"step_ms": step_ms, "kernels": times}
+
+
 def main() -> int:
     from cartseg_tpu_torch.device import require_cuda
 
@@ -342,17 +638,24 @@ def main() -> int:
         log("phase 3: kernels against their plain versions")
         errs = phase_compare(frames, dev)
 
-        log("phase 4: workload")
+        log("phase 4a: pseudo-label workload")
         launches, ckpts = phase_workload(tmp, dev)
         phase_reference(ckpts, frames, dev)
 
+        log("phase 4b: training workload (train_bce_dice_abl)")
+        train_launches, hist = phase_train_workload(tmp, dev)
+        phase_train_reference(dev)
+
         log("phase 5: timing")
         timing = phase_timing(ckpts, frames, dev, card)
+        train_timing = phase_train_timing(dev, card, hist)
 
+    launches.update({k: train_launches[k] for k in TRAIN_KERNELS})
+    times = {**timing["kernels"], **train_timing["kernels"]}
     record = {"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], "max_abs_err": errs[k],
-         "ms": timing["kernels"][k][0], "plain_ms": timing["kernels"][k][1]}
+         "ms": times[k][0], "plain_ms": times[k][1]}
         for k, (src, rep) in KERNELS.items()]}
     print(json.dumps(record))
     print(card)

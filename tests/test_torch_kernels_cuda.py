@@ -6,9 +6,13 @@ without the suite's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerance: none. The kernels and the plain versions compute integer
-labels, booleans, and the same two fp32 order statistics, so they are
-compared with torch.equal after a synchronize.
+Tolerance: none for CC, reach, median and EDT. Those kernels and their
+plain versions compute integer labels, booleans, the same fp32 order
+statistics and the same integer squared distances under an IEEE sqrt,
+so they are compared with torch.equal after a synchronize. The LSR
+kernels use expf/logf, which differ from torch's by ulps: loss atol
+1e-5 and gradient atol 2e-6 at unit g (measured on an H100: 3.8e-6 and
+4.2e-7 at [6,512,512,8]).
 """
 
 import numpy as np
@@ -18,6 +22,9 @@ import torch
 from cartseg_tpu_torch.ops.cuda import build
 from cartseg_tpu_torch.ops.cuda.cc import (cc_batch, cc_batch_plain,
                                            reach_batch, reach_batch_plain)
+from cartseg_tpu_torch.ops.cuda.edt import edt_batch_jfa, edt_batch_plain
+from cartseg_tpu_torch.ops.cuda.lsr import (lsr_bwd, lsr_bwd_plain, lsr_fwd,
+                                            lsr_fwd_plain)
 from cartseg_tpu_torch.ops.cuda.median import median_rows, median_rows_plain
 from cartseg_tpu_torch.utils.synthetic import (blob_masks, ring_cuts_mask,
                                                spiral_mask)
@@ -99,21 +106,94 @@ def test_median_kernel_equals_plain(cuda_device, B, N):
     assert torch.equal(got, median_rows_plain(t))
 
 
+@pytest.mark.parametrize("kind", ["random", "blobs", "none", "single",
+                                  "all"])
+@pytest.mark.parametrize("shape", [(3, 48, 64), (2, 37, 53), (1, 1, 1),
+                                   (2, 1, 77), (1, 130, 257)])
+def test_edt_kernel_equals_plain(cuda_device, kind, shape):
+    r = np.random.default_rng(2)
+    if kind == "random":
+        s = r.random(shape) < 0.02
+    elif kind == "blobs":
+        m = blob_masks(r, shape)
+        s = np.zeros_like(m)
+        s[:, :-1] |= m[:, :-1] != m[:, 1:]
+        s[:, :, :-1] |= m[:, :, :-1] != m[:, :, 1:]
+    elif kind == "single":
+        s = np.zeros(shape, bool)
+        s[..., shape[1] // 2, shape[2] // 3] = True
+    else:
+        s = np.full(shape, kind == "all")
+    t = torch.from_numpy(s).to(cuda_device)
+    got = edt_batch_jfa(t)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert torch.equal(got, edt_batch_plain(t))
+
+
+@pytest.mark.parametrize("C", [8, 2, 5])
+def test_lsr_kernels_within_tolerance_of_plain(cuda_device, C):
+    g = torch.Generator(device="cpu").manual_seed(C)
+    n = 4099
+    x = (torch.randn((n, C), generator=g) * 3).to(cuda_device)
+    lab = torch.randint(0, C, (n,), generator=g)
+    lab[::7] = 255
+    lab = lab.to(cuda_device)
+    up = torch.randn((n,), generator=g).to(cuda_device)
+    f = lsr_fwd(x, lab, 0.2, 255)
+    torch.cuda.synchronize()
+    assert (f - lsr_fwd_plain(x, lab, 0.2, 255)).abs().max() <= 1e-5
+    ones = torch.ones_like(up)
+    b = lsr_bwd(x, lab, ones, 0.2, 255)
+    assert (b - lsr_bwd_plain(x, lab, ones, 0.2, 255)).abs().max() <= 2e-6
+    b = lsr_bwd(x, lab, up, 0.2, 255)
+    assert (b - lsr_bwd_plain(x, lab, up, 0.2, 255)).abs().max() <= 1e-5
+    assert torch.all(f[::7] == 0) and torch.all(b[::7] == 0)
+
+
+def test_lsr_ce_autograd_runs_both_kernels(cuda_device):
+    from cartseg_tpu_torch.losses.label_smooth import lsr_ce
+
+    build.reset_launch_counts()
+    x = torch.randn((2, 16, 16, 8), device=cuda_device, requires_grad=True)
+    lab = torch.randint(0, 8, (2, 16, 16), device=cuda_device)
+    lsr_ce(x, lab, 0.2, 255).sum().backward()
+    assert build.LAUNCHES["lsr_fwd"] == 1 and build.LAUNCHES["lsr_bwd"] == 1
+    ref = x.detach().clone().requires_grad_(True)
+    from cartseg_tpu_torch.losses.label_smooth import lsr_cross_entropy
+    lsr_cross_entropy(ref, lab, 0.2, "none", 255).sum().backward()
+    assert (x.grad - ref.grad).abs().max() <= 2e-6
+    build.reset_launch_counts()
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     m = torch.zeros((2, 8, 8), dtype=torch.bool, device=cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
         cc_batch(m.transpose(1, 2))
     with pytest.raises(ValueError, match="contiguous"):
         median_rows(torch.zeros((8, 4), device=cuda_device).T)
+    with pytest.raises(ValueError, match="contiguous"):
+        edt_batch_jfa(m.transpose(1, 2))
+    with pytest.raises(ValueError, match="contiguous"):
+        lsr_fwd(torch.zeros((8, 4), device=cuda_device).T,
+                torch.zeros(4, dtype=torch.int64, device=cuda_device),
+                0.2, 255)
 
 
 def test_launch_counters_count_kernel_launches_only(cuda_device):
     build.reset_launch_counts()
     m = torch.ones((1, 8, 8), dtype=torch.bool)
     cc_batch(m)                                   # CPU: plain version
-    assert build.LAUNCHES["cc"] == 0
+    edt_batch_jfa(m)
+    assert build.LAUNCHES["cc"] == build.LAUNCHES["edt"] == 0
     cc_batch(m.to(cuda_device))
     reach_batch(m.to(cuda_device), m.to(cuda_device))
     median_rows(torch.ones((1, 4), device=cuda_device))
-    assert build.LAUNCHES == {"cc": 1, "reach": 1, "median": 1}
+    edt_batch_jfa(m.to(cuda_device))
+    x = torch.zeros((3, 8), device=cuda_device)
+    lab = torch.zeros(3, dtype=torch.int64, device=cuda_device)
+    lsr_fwd(x, lab, 0.2, 255)
+    lsr_bwd(x, lab, torch.ones(3, device=cuda_device), 0.2, 255)
+    assert build.LAUNCHES == {"cc": 1, "reach": 1, "median": 1, "edt": 1,
+                              "lsr_fwd": 1, "lsr_bwd": 1}
     build.reset_launch_counts()

@@ -123,3 +123,60 @@ def imported_modules(path: Path):
                 and node.level == 0:
             names.add(node.module.split(".")[0])
     return names
+
+
+def jax_train_state_to_port(state, encoder: str = "efficientnet-b0"):
+    """A JAX `TrainState` -> the port's pieces, all numpy or torch on the
+    CPU: the model state dict (params + BN running stats, through
+    models/convert.py), the AdamW moments `mu`/`nu` as numpy in the same
+    (torch) layout as the weights, keyed by parameter name, and the
+    per-group step `count` [3]."""
+    from cartseg_tpu_torch.models.convert import jax_variables_to_state_dict
+
+    tree = jax_tree_to_numpy({"params": state.params,
+                              "batch_stats": state.batch_stats})
+    sd = jax_variables_to_state_dict(tree, encoder)
+
+    def moments(t):
+        conv = jax_variables_to_state_dict(
+            {"params": jax_tree_to_numpy(t)}, encoder)
+        return {k: v.numpy() for k, v in conv.items()}
+
+    return {"state_dict": sd, "mu": moments(state.opt.mu),
+            "nu": moments(state.opt.nu),
+            "count": np.asarray(state.opt.count)}
+
+
+def load_jax_state_into_port(port_state, converted) -> None:
+    """Put `jax_train_state_to_port`'s output into a port TrainState."""
+    from cartseg_tpu_torch.train.optim import AdamWState
+
+    port_state.model.load_state_dict(converted["state_dict"])
+    port_state.opt = AdamWState(
+        mu={k: torch.from_numpy(v.copy()) for k, v in converted["mu"].items()},
+        nu={k: torch.from_numpy(v.copy()) for k, v in converted["nu"].items()},
+        count=torch.from_numpy(converted["count"].astype(np.int32)))
+
+
+@pytest.fixture(scope="module")
+def png_pair_tree(tmp_path_factory):
+    """The synthetic training tree of utils/synthetic.py (as chip_smoke.py
+    writes it at 512x400): 3 sessions x 4 frames of 64x50, letterboxed to
+    exactly 64^2, so nothing resizes. Returns (images_root, masks_root)."""
+    from cartseg_tpu_torch.utils.synthetic import make_png_pair_tree
+
+    return make_png_pair_tree(tmp_path_factory.mktemp("pairs"), 3, 4,
+                              (64, 50), seed=0)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run a test module's torch CPU ops on one thread. The suite runs
+    six pytest workers on a few cores; torch's default of one OpenMP
+    thread per core then oversubscribes them, and its workers spin at
+    every parallel region (a 3 s CPU training run took 330 s that way).
+    Autouse in every module that imports it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
