@@ -1,5 +1,6 @@
-"""JAX variables -> the port's state dict: the inverse of
-cartseg_tpu/models/torch_import.py:249-343, without importing JAX.
+"""JAX variables -> the port's state dicts, without importing JAX: the
+UNet's (the inverse of cartseg_tpu/models/torch_import.py:249-343) and
+SAM's (`jax_sam_to_state_dict`, the inverse of convert_torch_sam).
 
 `variables_np` is the JAX package's {"params", "batch_stats"} tree with
 numpy leaves (e.g. `jax.tree_util.tree_map(np.asarray, variables)`).
@@ -93,4 +94,99 @@ def jax_variables_to_state_dict(variables_np: Mapping,
         if path[-1] == "kernel" and v.ndim == 4:
             v = np.transpose(v, (3, 2, 0, 1))
         sd[_torch_key(path)] = torch.from_numpy(np.array(v, np.float32))
+    return sd
+
+
+def jax_sam_to_state_dict(variables_np: Mapping,
+                          cfg=None) -> Dict[str, torch.Tensor]:
+    """JAX SAM {"params"} numpy tree -> the official-named state dict of
+    models/sam.py `Sam(cfg)`: the exact inverse of
+    cartseg_tpu/models/sam.py `convert_torch_sam` (no mask_downscaling
+    keys, which that converter drops). Linear kernels [in,out] -> weight
+    [out,in]; conv kernels [kh,kw,in,out] -> [out,in,kh,kw]; transposed-
+    conv kernels are un-flipped in space and go back to [in,out,kh,kw]."""
+    from cartseg_tpu_torch.models.sam import SamConfig
+
+    c = cfg or SamConfig()
+    p = variables_np["params"]
+    sd = {}
+
+    def put(key, arr):
+        sd[key] = torch.from_numpy(np.ascontiguousarray(arr))
+
+    def lin(prefix, t):
+        put(f"{prefix}.weight", np.asarray(t["kernel"]).T)
+        put(f"{prefix}.bias", t["bias"])
+
+    def conv(prefix, t):
+        put(f"{prefix}.weight", np.asarray(t["kernel"]).transpose(3, 2, 0, 1))
+        if "bias" in t:
+            put(f"{prefix}.bias", t["bias"])
+
+    def conv_t(prefix, t):
+        k = np.asarray(t["kernel"])[::-1, ::-1]
+        put(f"{prefix}.weight", k.transpose(2, 3, 0, 1))
+        put(f"{prefix}.bias", t["bias"])
+
+    def ln(prefix, t):
+        put(f"{prefix}.weight", t["scale"])
+        put(f"{prefix}.bias", t["bias"])
+
+    enc = p["image_encoder"]
+    conv("image_encoder.patch_embed.proj", enc["patch_embed_proj"])
+    put("image_encoder.pos_embed", enc["pos_embed"])
+    for i in range(c.encoder_depth):
+        b, pre = enc[f"block{i}"], f"image_encoder.blocks.{i}"
+        ln(f"{pre}.norm1", b["norm1"])
+        ln(f"{pre}.norm2", b["norm2"])
+        lin(f"{pre}.attn.qkv", b["attn"]["qkv"])
+        lin(f"{pre}.attn.proj", b["attn"]["proj"])
+        put(f"{pre}.attn.rel_pos_h", b["attn"]["rel_pos_h"])
+        put(f"{pre}.attn.rel_pos_w", b["attn"]["rel_pos_w"])
+        lin(f"{pre}.mlp.lin1", b["mlp_lin1"])
+        lin(f"{pre}.mlp.lin2", b["mlp_lin2"])
+    conv("image_encoder.neck.0", enc["neck_conv1"])
+    ln("image_encoder.neck.1", enc["neck_ln1"])
+    conv("image_encoder.neck.2", enc["neck_conv2"])
+    ln("image_encoder.neck.3", enc["neck_ln2"])
+
+    pe = p["prompt_encoder"]
+    put("prompt_encoder.pe_layer.positional_encoding_gaussian_matrix",
+        pe["pe_gaussian"])
+    for i in range(4):
+        put(f"prompt_encoder.point_embeddings.{i}.weight",
+            np.asarray(pe["point_embeddings"])[i:i + 1])
+    put("prompt_encoder.not_a_point_embed.weight", pe["not_a_point_embed"])
+    put("prompt_encoder.no_mask_embed.weight", pe["no_mask_embed"])
+
+    dec = p["mask_decoder"]
+    tr, tpre = dec["transformer"], "mask_decoder.transformer"
+
+    def attn(prefix, t):
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            lin(f"{prefix}.{name}", t[name])
+
+    for i in range(c.decoder_depth):
+        lay, pre = tr[f"layer{i}"], f"{tpre}.layers.{i}"
+        for a in ("self_attn", "cross_attn_token_to_image",
+                  "cross_attn_image_to_token"):
+            attn(f"{pre}.{a}", lay[a])
+        for n in ("norm1", "norm2", "norm3", "norm4"):
+            ln(f"{pre}.{n}", lay[n])
+        lin(f"{pre}.mlp.lin1", lay["mlp_lin1"])
+        lin(f"{pre}.mlp.lin2", lay["mlp_lin2"])
+    attn(f"{tpre}.final_attn_token_to_image", tr["final_attn_token_to_image"])
+    ln(f"{tpre}.norm_final_attn", tr["norm_final_attn"])
+    put("mask_decoder.iou_token.weight", dec["iou_token"])
+    put("mask_decoder.mask_tokens.weight", dec["mask_tokens"])
+    conv_t("mask_decoder.output_upscaling.0", dec["upscale_conv1"])
+    ln("mask_decoder.output_upscaling.1", dec["upscale_ln"])
+    conv_t("mask_decoder.output_upscaling.3", dec["upscale_conv2"])
+    for i in range(c.num_mask_tokens):
+        for j in range(3):
+            lin(f"mask_decoder.output_hypernetworks_mlps.{i}.layers.{j}",
+                dec[f"hyper_mlp{i}_lin{j}"])
+    for j in range(3):
+        lin(f"mask_decoder.iou_prediction_head.layers.{j}",
+            dec[f"iou_mlp_lin{j}"])
     return sd

@@ -2,10 +2,13 @@
 
 Every `csrc/*.cu` is compiled by nvcc into one shared library with a
 plain C interface, at first use, into `ops/cuda/_build/` (listed in
-.gitignore), and loaded with ctypes:
+.gitignore), and loaded with ctypes. The sources compile in parallel,
+one nvcc process each, and are then linked:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o _build/libcartseg_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas -v -c -o <name>.o csrc/<name>.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o _build/libcartseg_kernels_<hash>.so *.o
 
 The file name carries a hash of the sources and flags, so an edited
 source rebuilds and a stale library is never loaded. Nothing is built
@@ -31,10 +34,11 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 LAUNCHES = {"cc": 0, "reach": 0, "median": 0, "edt": 0, "lsr_fwd": 0,
-            "lsr_bwd": 0}
+            "lsr_bwd": 0, "flash_fwd": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -53,6 +57,9 @@ _SIGNATURES = {
     "cartseg_lsr_fwd": (_P, _P, _P, _L, _I, _F, _F, _I, _P),
     # (x, labels, g, grad, n, C, lb_pos, lb_neg, ignore, stream)
     "cartseg_lsr_bwd": (_P, _P, _P, _P, _L, _I, _F, _F, _I, _P),
+    # (q, k, v, rel_h, rel_w, out, bnh, S, g, hd, bf16, scale, stream)
+    "cartseg_flash_relpos_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _F, _P),
 }
 
 
@@ -80,7 +87,7 @@ def _sources():
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -91,23 +98,39 @@ def library_path() -> Path:
 BUILD_LOG = {"text": ""}
 
 
+def _run_all(cmds) -> str:
+    """Run the commands at once; raise on the first that failed, else
+    return their output."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    logs, failed = [], []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        logs.append(out + err)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(logs)
+
+
 def build() -> Path:
     """Compile the kernels unless a library for these sources exists."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    BUILD_LOG["text"] = proc.stdout + proc.stderr
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as td:
+        objs = [str(Path(td) / f"{src.stem}.o") for src in _sources()]
+        log = _run_all([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                       for obj, src in zip(objs, _sources()))
+        tmp = str(Path(td) / out.name)
+        log += _run_all([[nvcc, *LINK_FLAGS, "-o", tmp, *objs]])
+        os.replace(tmp, out)
+    BUILD_LOG["text"] = log
     return out
 
 

@@ -181,3 +181,24 @@ def write_png(path, image: np.ndarray) -> None:
             raise OSError(f"cv2.imwrite failed for {path}")
         return
     Path(path).write_bytes(encode_png(image))
+
+
+def resize_bilinear_u8(image, hw):
+    """cv2.resize(image, (w, h), interpolation=cv2.INTER_LINEAR) without
+    OpenCV, on the tensor's device: half-pixel bilinear without
+    antialiasing (INTER_LINEAR does not antialias), rounded to uint8.
+    `image` is an [H,W] or [H,W,C] uint8 tensor. cv2 weighs with 11-bit
+    fixed-point coefficients, so the two agree within 1 LSB. An image
+    already of size `hw` is returned as it is."""
+    import torch
+    import torch.nn.functional as F
+
+    h, w = int(hw[0]), int(hw[1])
+    if tuple(image.shape[:2]) == (h, w):
+        return image
+    x = image.reshape(image.shape[0], image.shape[1], -1)
+    x = x.permute(2, 0, 1)[None].to(torch.float32)
+    y = F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False,
+                      antialias=False)
+    y = y[0].permute(1, 2, 0).round().clamp(0, 255).to(torch.uint8)
+    return y.reshape((h, w) + tuple(image.shape[2:])).contiguous()

@@ -16,7 +16,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
      single-seed and an all-seed sample - all bit for bit (torch.equal
      after synchronize); the LSR CE forward and backward on
      [6,512,512,8] logits with labels 0..7 and every 7th row ignored,
-     loss atol 1e-5 and gradient atol 2e-6 at unit g;
+     loss atol 1e-5 and gradient atol 2e-6 at unit g; the decomposed
+     rel-pos flash attention at the ViT-B global block [12,4096,64]
+     (max abs err within 1e-5 of max |plain| in fp32, 3e-2 in bf16) and
+     at the tests' [2,256,32] fp32;
   4. the workloads through their CLI entry points, each with the launch
      counts set to 0 just before it and read just after:
      a. pseudo-labels (workloads/create_pseudo_labels.main) on a
@@ -35,10 +38,21 @@ Phases, in order; any failure raises and the exit code is non-zero:
         losses, edt, lsr_fwd and lsr_bwd must have been launched, and
         the .pth must load into the pseudo-labeller; then one fp32
         train step on the card against the CPU's on a small input;
+     c. the SAM ViT-B predictor (tools/annotate.load_sam, fp32, TF32
+        off) from a seeded random init saved as an official-named .pth:
+        set_image on three 1024^2 frames and one 512^2 frame (resized),
+        7 predict requests each (points, a negative click, box, box +
+        point, multimask on and off, logits); masks at frame size,
+        flash_fwd launched 4 times per set_image, `.features` injection;
+        then the ViT-B embedding with the flash lane against the plain
+        lane on the card (rel max err <= 1e-4), and a small SAM on the
+        card against the CPU;
   5. timing with CUDA events: the pseudo-label program per bs64 batch,
      the train step at bs6@512^2 (device-resident batch, loader
-     excluded) and the ABL loss's share of it, and each kernel against
-     its plain version at the path's shapes.
+     excluded) and the ABL loss's share of it, SAM's set_image and
+     predict and the global blocks' share of set_image, and each kernel
+     against its plain version and, where one PyTorch call computes the
+     same function, that call, at the path's shapes, beside its bound.
 The line before the last holds the kernels' JSON record, the one before
 it the card's name and power limit, and the last line
 {"ok": true, "device": {...}}.
@@ -74,10 +88,21 @@ KERNELS = {
                 "cartseg_tpu/ops/pallas/lsr.py:38"),
     "lsr_bwd": ("cartseg_tpu_torch/ops/cuda/csrc/lsr.cu",
                 "cartseg_tpu/ops/pallas/lsr.py:61"),
+    "flash_fwd": ("cartseg_tpu_torch/ops/cuda/csrc/flash_relpos.cu",
+                  "cartseg_tpu/ops/pallas/flash_attention.py:88"),
 }
 PSEUDO_KERNELS = ("cc", "reach", "median")
 TRAIN_KERNELS = ("edt", "lsr_fwd", "lsr_bwd")
+SAM_KERNELS = ("flash_fwd",)
 LSR_TOL = {"lsr_fwd": 1e-5, "lsr_bwd": 2e-6}
+# flash kernel vs plain: max abs error over the plain output's max |value|
+FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+SAM_FRAMES = ((1024, 1024),) * 3 + ((512, 512),)   # create_testset, hard
+SAM_GLOBAL_BLOCKS = 4
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s; dense FLOP/s
+# of fp32 outside the tensor cores and of bf16 on them
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 
 
 def log(msg: str) -> None:
@@ -105,6 +130,26 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bytes_bound(n: int) -> tuple:
+    """(bound_ms, "bytes"): n bytes, each input read once and each output
+    written once, at the card's HBM rate."""
+    return n / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def flash_bound(q: torch.Tensor, rel_h: torch.Tensor) -> tuple:
+    """The larger of the two products' FLOPs (4*bnh*S^2*hd) at the peak
+    for q's type and q, k, v, rel_h, rel_w, out once at the HBM rate."""
+    bnh, S, hd = q.shape
+    t_ops = 4.0 * bnh * S * S * hd / PEAK_FLOPS[q.dtype] * 1e3
+    t_bytes, _ = bytes_bound(4 * q.numel() * q.element_size()
+                             + 2 * nbytes(rel_h))
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def check_equal(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -375,6 +420,22 @@ def phase_timing(ckpts, frames: np.ndarray, dev, card: str) -> dict:
         times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
         log(f"  {name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/"
             f"{p2:.4f} ms at the path's shapes [{card}]")
+    # bounds: the kernels move bytes (a few integer operations a pixel)
+    outs = {name: kern() for name, (kern, _) in cases.items()}
+    bounds = {"cc": bytes_bound(nbytes(pred_in, outs["cc"])),
+              "reach": bytes_bound(nbytes(weak, strong, outs["reach"])),
+              "median": bytes_bound(nbytes(conf, outs["median"]))}
+    # library yardsticks: no PyTorch call labels components or runs the
+    # hysteresis; the median is torch.quantile's midpoint
+    med = torch.quantile(conf, 0.5, dim=1, interpolation="midpoint")
+    lib_ms = cuda_ms(lambda: torch.quantile(conf, 0.5, dim=1,
+                                            interpolation="midpoint"), 5)
+    library = {"cc": None, "reach": None, "median": lib_ms}
+    log(f"  library: torch.quantile(midpoint) {lib_ms:.4f} ms (max abs "
+        f"diff to the kernel {float((med - outs['median']).abs().max()):.2e})"
+        f"; cc, reach: no single PyTorch call [{card}]")
+    for name, (b, by) in bounds.items():
+        log(f"  {name}: bound {b:.5f} ms ({by}, {HBM_BYTES_PER_S:.3g} B/s)")
     # the path's masks depend on the weights (random init: near all-fg);
     # phase 3's mixed masks are a harder input for both versions
     mixed = torch.from_numpy(cc_masks(np.random.default_rng(SEED))).to(dev)
@@ -382,7 +443,8 @@ def phase_timing(ckpts, frames: np.ndarray, dev, card: str) -> dict:
         f"{cuda_ms(lambda: cc_batch(mixed), 20):.4f} ms, plain "
         f"{cuda_ms(lambda: cc_batch_plain(mixed), 1):.4f} ms [{card}]")
     build.reset_launch_counts()
-    return {"program_ms": ms, "kernels": times}
+    return {"program_ms": ms, "kernels": times, "bounds": bounds,
+            "library": library}
 
 
 def phase_train_workload(tmp: Path, dev) -> tuple:
@@ -601,8 +663,356 @@ def phase_train_timing(dev, card: str, hist) -> dict:
     log(f"  epoch images_per_sec from the run's history (train + val + "
         f"host sync, 48 train / 12 val images): "
         f"{[h['images_per_sec'] for h in hist]} [{card}]")
+    outs = {name: kern() for name, (kern, _) in cases.items()}
+    bounds = {"edt": bytes_bound(nbytes(seeds, outs["edt"])),
+              "lsr_fwd": bytes_bound(nbytes(x, lab, outs["lsr_fwd"])),
+              "lsr_bwd": bytes_bound(nbytes(x, lab, g, outs["lsr_bwd"]))}
+    # LSR forward == cross-entropy against the smoothed one-hot as
+    # probability targets (all zero on ignored rows); built untimed
+    C = x.shape[1]
+    tgt = torch.full_like(x, 0.2 / C)
+    keep = lab != 255
+    tgt[keep, lab[keep]] = 0.8
+    tgt[~keep] = 0.0
+    ce = torch.nn.functional.cross_entropy(x, tgt, reduction="none")
+    lib_ms = cuda_ms(lambda: torch.nn.functional.cross_entropy(
+        x, tgt, reduction="none"), 20)
+    library = {"edt": None, "lsr_fwd": lib_ms, "lsr_bwd": None}
+    log(f"  library: F.cross_entropy(probability targets) {lib_ms:.4f} ms "
+        f"(max abs diff to the kernel "
+        f"{float((ce - outs['lsr_fwd']).abs().max()):.2e}); edt, lsr_bwd: "
+        f"no single PyTorch call [{card}]")
+    for name, (b, by) in bounds.items():
+        log(f"  {name}: bound {b:.5f} ms ({by}, {HBM_BYTES_PER_S:.3g} B/s)")
     build.reset_launch_counts()
-    return {"step_ms": step_ms, "kernels": times}
+    return {"step_ms": step_ms, "kernels": times, "bounds": bounds,
+            "library": library}
+
+
+def flash_inputs(bnh: int, g: int, hd: int, dtype, dev) -> list:
+    """q, k, v ~ N(0,1) [bnh,g*g,hd] and the rel factors 0.5*N(0,1)
+    [bnh,g*g,g] (tests/test_flash_attention.py's recipe), seeded."""
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    S = g * g
+    ts = [torch.randn((bnh, S, hd), generator=gen) for _ in range(3)]
+    ts += [0.5 * torch.randn((bnh, S, g), generator=gen) for _ in range(2)]
+    return [t.to(dtype).to(dev) for t in ts]
+
+
+def phase_compare_flash(dev) -> float:
+    """flash_fwd against its plain version: the ViT-B global block
+    [12,4096,64] in fp32 and bf16, and the tests' [2,256,32] fp32."""
+    from cartseg_tpu_torch.ops.cuda.flash_attention import (
+        flash_relpos_fwd, flash_relpos_fwd_plain)
+
+    errs = {}
+    for bnh, g, hd, dt in ((12, 64, 64, torch.float32),
+                           (12, 64, 64, torch.bfloat16),
+                           (2, 16, 32, torch.float32)):
+        ts = flash_inputs(bnh, g, hd, dt, dev)
+        got = flash_relpos_fwd(*ts, hd ** -0.5, g)
+        torch.cuda.synchronize()
+        want = flash_relpos_fwd_plain(*ts, hd ** -0.5, g)
+        err = float((got.float() - want.float()).abs().max())
+        rel = err / float(want.float().abs().max())
+        if got.dtype != dt or not rel <= FLASH_TOL[dt]:
+            raise AssertionError(f"flash_fwd [{bnh},{g * g},{hd}] {dt}: "
+                                 f"max abs err {err} = {rel} of max |plain|"
+                                 f" (tolerance {FLASH_TOL[dt]})")
+        log(f"  flash_fwd [{bnh},{g * g},{hd}] {dt}: max abs err {err:.3e}"
+            f" = {rel:.3e} of max |plain| (tolerance {FLASH_TOL[dt]})")
+        errs[(bnh, g, hd, dt)] = err
+    return errs[(12, 64, 64, torch.float32)]
+
+
+def sam_checkpoint(path: Path, cfg) -> None:
+    """A seeded random init of `cfg` in the official naming (torch's
+    default init, rel-pos tables 0.3*N(0,1), pos_embed 0.1*N(0,1)) with
+    the mask-prompt path's keys added, saved as a .pth."""
+    from cartseg_tpu_torch.models.sam import MASK_DOWNSCALING_PREFIX, Sam
+
+    torch.manual_seed(SEED)
+    model = Sam(cfg)
+    with torch.no_grad():
+        for name, prm in model.named_parameters():
+            if name.endswith(("rel_pos_h", "rel_pos_w")):
+                prm.normal_(0.0, 0.3)
+            elif name.endswith("pos_embed"):
+                prm.normal_(0.0, 0.1)
+    sd = model.state_dict()
+    mic, pd = cfg.mask_in_chans, cfg.prompt_dim
+    for i, shape in ((0, (mic // 4, 1, 2, 2)), (1, (mic // 4,)),
+                     (3, (mic, mic // 4, 2, 2)), (4, (mic,)),
+                     (6, (pd, mic, 1, 1))):
+        sd[f"{MASK_DOWNSCALING_PREFIX}{i}.weight"] = 0.02 * torch.randn(shape)
+        sd[f"{MASK_DOWNSCALING_PREFIX}{i}.bias"] = torch.zeros(shape[0])
+    torch.save(sd, path)
+
+
+def sam_requests(h: int, w: int) -> list:
+    """The annotation tool's prompt kinds on an h x w frame: a click,
+    clicks with a negative one, a box, a box with a click, multimask on
+    and off; the last one asks for logits."""
+    def xy(*pts):
+        return np.array([[fx * w, fy * h] for fx, fy in pts], np.float32)
+
+    box = np.array([0.2 * w, 0.25 * h, 0.75 * w, 0.8 * h], np.float32)
+    return [
+        dict(point_coords=xy((0.5, 0.5)), point_labels=np.array([1]),
+             multimask_output=True),
+        dict(point_coords=xy((0.45, 0.5), (0.55, 0.45), (0.1, 0.9)),
+             point_labels=np.array([1, 1, 0]), multimask_output=True),
+        dict(point_coords=xy((0.5, 0.5), (0.9, 0.1)),
+             point_labels=np.array([1, 0]), multimask_output=False),
+        dict(box=box, multimask_output=False),
+        dict(box=box, multimask_output=True),
+        dict(point_coords=xy((0.5, 0.5)), point_labels=np.array([1]),
+             box=box, multimask_output=False),
+        dict(point_coords=xy((0.5, 0.5), (0.3, 0.7)),
+             point_labels=np.array([1, 0]), box=box, multimask_output=True,
+             return_logits=True),
+    ]
+
+
+def phase_sam(tmp: Path, dev) -> tuple:
+    """The SAM ViT-B predictor through tools/annotate.load_sam: a seeded
+    official-named checkpoint, three 1024^2 frames (create_testset's
+    display size, no resize) and one 512^2 frame (create_hard_masks',
+    resized to 1024^2), set_image and 7 predict requests on each."""
+    from cartseg_tpu_torch.device import set_fp32_policy
+    from cartseg_tpu_torch.models.sam import SamConfig
+    from cartseg_tpu_torch.ops.cuda import build
+    from cartseg_tpu_torch.tools.annotate import load_sam
+    from cartseg_tpu_torch.utils.synthetic import frame
+
+    set_fp32_policy()
+    ckpt = tmp / "sam_vit_b_seed0.pth"
+    t0 = time.perf_counter()
+    sam_checkpoint(ckpt, SamConfig())
+    log(f"  seeded ViT-B checkpoint, official names + mask_downscaling: "
+        f"{ckpt.stat().st_size / 1e6:.1f} MB in "
+        f"{time.perf_counter() - t0:.1f} s")
+    r = np.random.default_rng(SEED)
+    frames = [frame(r, hw) for hw in SAM_FRAMES]
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    pred = load_sam(ckpt, device="cuda")
+    n_req, fg = 0, []
+    for img in frames:
+        pred.set_image(img)
+        h, w = img.shape[:2]
+        for req in sam_requests(h, w):
+            masks, iou, _ = pred.predict(**req)
+            n = 3 if req["multimask_output"] else 1
+            logits = req.get("return_logits", False)
+            if (masks.shape != (n, h, w) or iou.shape != (n,)
+                    or masks.dtype != (np.float32 if logits else bool)
+                    or not np.isfinite(iou).all()
+                    or (logits and not np.isfinite(masks).all())):
+                raise AssertionError(f"predict {req} on {h}x{w}: masks "
+                                     f"{masks.shape} {masks.dtype}, iou "
+                                     f"{iou}")
+            if not logits:
+                fg.append(float(masks.mean()))
+            n_req += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    want = SAM_GLOBAL_BLOCKS * len(frames)
+    log(f"  predictor: {len(frames)} set_image ({SAM_FRAMES}) and {n_req} "
+        f"predict requests in {wall:.1f} s wall (load and first-call "
+        f"warm-up included); masks at frame size, bool, IoU finite; mask "
+        f"fg share {min(fg):.3f}..{max(fg):.3f}; launches {launches}")
+    if launches["flash_fwd"] != want:
+        raise AssertionError(f"flash_fwd launched {launches['flash_fwd']} "
+                             f"times for {len(frames)} set_image, want "
+                             f"{want}")
+
+    # .features injection, as the prefetch thread hands the embedding over
+    img = frames[0]
+    req = sam_requests(*img.shape[:2])[-1]
+    pred.set_image(img)
+    feats, hw = pred.features, (pred._orig_hw, pred._input_hw)
+    want_m, want_i, _ = pred.predict(**req)
+    pred.set_image(frames[-1])
+    pred.features = feats
+    pred._orig_hw, pred._input_hw = hw
+    got_m, got_i, _ = pred.predict(**req)
+    err = max(float(np.abs(got_m - want_m).max()),
+              float(np.abs(got_i - want_i).max()))
+    if err > 1e-5:
+        raise AssertionError(f"injected features: predict differs by {err}")
+    log(f"  .features injection: the same predict (max abs diff {err:.1e})")
+    return launches, pred, frames
+
+
+def phase_sam_reference(tmp: Path, pred, frames, dev) -> None:
+    """ViT-B embedding on the card, flash lane against the plain lane,
+    fp32 with TF32 off; then a small config (img 256, one global block
+    on the kernel) on the card against the CPU's plain lanes."""
+    from cartseg_tpu_torch.models.sam import SamConfig, ViTAttention
+    from cartseg_tpu_torch.tools.annotate import load_sam
+    from cartseg_tpu_torch.utils.synthetic import frame
+
+    img = frames[0]
+    f_flash = pred.set_image(img).clone()
+    attns = [m for m in pred.model.modules()
+             if isinstance(m, ViTAttention) and m.use_flash]
+    for m in attns:
+        m.use_flash = False
+    try:
+        f_plain = pred.set_image(img).clone()
+    finally:
+        for m in attns:
+            m.use_flash = True
+    rel = float((f_flash - f_plain).abs().max() / f_plain.abs().max())
+    if len(attns) != SAM_GLOBAL_BLOCKS or not rel <= 1e-4:
+        raise AssertionError(f"ViT-B embedding, flash vs plain lane: rel "
+                             f"max err {rel} over {len(attns)} blocks")
+    log(f"  ViT-B embedding [1,64,64,256], flash lane vs plain lane on the "
+        f"card (fp32, TF32 off): rel max err {rel:.3e} (limit 1e-4)")
+
+    cfg = SamConfig(img_size=256, encoder_dim=64, encoder_depth=2,
+                    encoder_heads=2, global_attn_indexes=(1,), window_size=6,
+                    prompt_dim=32, decoder_heads=2, decoder_mlp_dim=64,
+                    global_attn_flash=True)
+    ckpt = tmp / "sam_small.pth"
+    sam_checkpoint(ckpt, cfg)
+    small = frame(np.random.default_rng(SEED + 1), (192, 256))
+    req = sam_requests(192, 256)[-1]
+    outs = {}
+    for d in ("cpu", dev):
+        p = load_sam(ckpt, device=d, cfg=cfg)
+        f = p.set_image(small).float().cpu()
+        m, iou, _ = p.predict(**req)
+        outs[str(d)] = (f, m, iou)
+    (fc, mc, ic), (fg, mg, ig) = outs["cpu"], outs[str(dev)]
+    ferr = float((fg - fc).abs().max())
+    merr, ierr = float(np.abs(mg - mc).max()), float(np.abs(ig - ic).max())
+    if ferr > 1e-4 or merr > 1e-3 or ierr > 1e-4:
+        raise AssertionError(f"small SAM card vs CPU: features {ferr}, "
+                             f"logits {merr}, iou {ierr}")
+    log(f"  small SAM (img 256) card vs CPU: features max err {ferr:.2e}, "
+        f"logits {merr:.2e}, iou {ierr:.2e}")
+
+
+def top_device_ops(fn, n_top: int = 8) -> tuple:
+    """The device kernels and copies that take most time in one call of
+    fn, as (name, ms summed over their launches), and their total ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ms = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms[e.name] = ms.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    rows = sorted(ms.items(), key=lambda r: -r[1])
+    return rows[:n_top], sum(ms.values())
+
+
+def phase_sam_timing(pred, frames, dev, card: str) -> dict:
+    """set_image and predict on the card, the global blocks' share of
+    set_image, and flash_fwd against its plain version and
+    F.scaled_dot_product_attention at the inputs the path gives it."""
+    from cartseg_tpu_torch.ops import flash_attention as fa
+    from cartseg_tpu_torch.ops.cuda import build
+    from cartseg_tpu_torch.ops.cuda.flash_attention import (
+        flash_relpos_fwd, flash_relpos_fwd_plain)
+
+    policy = (f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
+              f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+    img = frames[0]
+    set_ms = [cuda_ms(lambda: pred.set_image(img), 10) for _ in range(2)]
+    busy = _busy_share(lambda: pred.set_image(img), 3)
+    reqs = sam_requests(*img.shape[:2])
+    pred.set_image(img)
+    for req in reqs:
+        pred.predict(**req)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        for req in reqs:
+            pred.predict(**req)
+    pred_ms = (time.perf_counter() - t0) * 1e3 / (3 * len(reqs))
+    for what, fn in (("set_image", lambda: pred.set_image(img)),
+                     ("predict", lambda: pred.predict(**reqs[-1]))):
+        rows, total = top_device_ops(fn)
+        log(f"  {what} device time by kernel (profiler, one call, "
+            f"{total:.3f} ms of kernels and copies): " + "; ".join(
+                f"{name[:70]} {ms:.3f}" for name, ms in rows))
+
+    # the global blocks on the inputs set_image gives them, and the
+    # kernel's arguments from the first of them
+    blocks = pred.model.image_encoder.blocks
+    inputs, flash_args = {}, []
+    hooks = [blk.register_forward_pre_hook(
+        lambda mod, args, i=i: inputs.__setitem__(i, args[0].clone()))
+        for i, blk in enumerate(blocks) if blk.window_size == 0]
+    real = fa.flash_attention_relpos
+
+    def capture(*a, **kw):
+        flash_args.append((a, kw))
+        return real(*a, **kw)
+
+    fa.flash_attention_relpos = capture
+    try:
+        pred.set_image(img)
+    finally:
+        fa.flash_attention_relpos = real
+        for h in hooks:
+            h.remove()
+    with torch.inference_mode():
+        glob_ms = sum(cuda_ms(lambda: blocks[i](x), 10)
+                      for i, x in inputs.items())
+    set_mean = sum(set_ms) / 2
+    log(f"  set_image 1024^2 fp32 ViT-B ({policy}): {set_ms[0]:.3f}/"
+        f"{set_ms[1]:.3f} ms, {1000.0 / set_mean:.2f} img/s; the "
+        f"{len(inputs)} global blocks {glob_ms:.3f} ms, share "
+        f"{glob_ms / set_mean:.4f}; device busy share {busy:.4f}; predict "
+        f"{pred_ms:.3f} ms per request (host clock, 7 kinds, masks back "
+        f"on the host) [{card}]")
+
+    (q, k, v, rh, rw), kw = flash_args[0]
+    scale, g = kw["scale"], kw["grid_size"]
+    bnh, S, _ = q.shape
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        ts = [t.to(dt).contiguous() for t in (q, k, v, rh, rw)]
+        bias = (ts[3][:, :, :, None] + ts[4][:, :, None, :]).reshape(
+            bnh, S, S)
+
+        def kern():
+            return flash_relpos_fwd(*ts, scale, g)
+
+        def plain():
+            return flash_relpos_fwd_plain(*ts, scale, g)
+
+        def lib():
+            return torch.nn.functional.scaled_dot_product_attention(
+                ts[0], ts[1], ts[2], attn_mask=bias, scale=scale)
+
+        lerr = float((lib().float() - plain().float()).abs().max())
+        p1 = cuda_ms(plain, 5)
+        k1 = cuda_ms(kern, 20)
+        l1 = cuda_ms(lib, 20)
+        k2 = cuda_ms(kern, 20)
+        p2 = cuda_ms(plain, 5)
+        b, by = flash_bound(ts[0], ts[3])
+        out[dt] = ((k1 + k2) / 2, (p1 + p2) / 2, l1, b, by)
+        log(f"  flash_fwd [{bnh},{S},{q.shape[2]}] {dt} (the path's "
+            f"inputs): kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/"
+            f"{p2:.4f} ms, F.scaled_dot_product_attention with the bias "
+            f"built beforehand {l1:.4f} ms (max abs diff to plain "
+            f"{lerr:.2e}); bound {b:.5f} ms ({by}), kernel at "
+            f"{b / ((k1 + k2) / 2):.3f} of it [{card}]")
+    build.reset_launch_counts()
+    return {"set_image_ms": set_mean, "predict_ms": pred_ms,
+            "flash": out}
 
 
 def main() -> int:
@@ -637,6 +1047,7 @@ def main() -> int:
 
         log("phase 3: kernels against their plain versions")
         errs = phase_compare(frames, dev)
+        errs["flash_fwd"] = phase_compare_flash(dev)
 
         log("phase 4a: pseudo-label workload")
         launches, ckpts = phase_workload(tmp, dev)
@@ -646,16 +1057,30 @@ def main() -> int:
         train_launches, hist = phase_train_workload(tmp, dev)
         phase_train_reference(dev)
 
+        log("phase 4c: SAM ViT-B predictor (tools/annotate.load_sam)")
+        sam_launches, pred, sam_frames = phase_sam(tmp, dev)
+        phase_sam_reference(tmp, pred, sam_frames, dev)
+
         log("phase 5: timing")
         timing = phase_timing(ckpts, frames, dev, card)
         train_timing = phase_train_timing(dev, card, hist)
+        sam_timing = phase_sam_timing(pred, sam_frames, dev, card)
 
     launches.update({k: train_launches[k] for k in TRAIN_KERNELS})
+    launches.update({k: sam_launches[k] for k in SAM_KERNELS})
     times = {**timing["kernels"], **train_timing["kernels"]}
+    bounds = {**timing["bounds"], **train_timing["bounds"]}
+    library = {**timing["library"], **train_timing["library"]}
+    f_ms, f_plain, f_lib, f_b, f_by = sam_timing["flash"][torch.float32]
+    times["flash_fwd"] = (f_ms, f_plain)
+    bounds["flash_fwd"] = (f_b, f_by)
+    library["flash_fwd"] = f_lib
     record = {"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], "max_abs_err": errs[k],
-         "ms": times[k][0], "plain_ms": times[k][1]}
+         "ms": times[k][0], "plain_ms": times[k][1],
+         "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+         "library_ms": library[k]}
         for k, (src, rep) in KERNELS.items()]}
     print(json.dumps(record))
     print(card)

@@ -12,7 +12,11 @@ statistics and the same integer squared distances under an IEEE sqrt,
 so they are compared with torch.equal after a synchronize. The LSR
 kernels use expf/logf, which differ from torch's by ulps: loss atol
 1e-5 and gradient atol 2e-6 at unit g (measured on an H100: 3.8e-6 and
-4.2e-7 at [6,512,512,8]).
+4.2e-7 at [6,512,512,8]). The flash-attention kernel sums its fp32
+products and its online softmax in another order than the plain
+version's materialised softmax: max abs error within 1e-5 of the plain
+output's max |value| in float32, 3e-2 in bfloat16 (one bf16 rounding of
+the output, the JAX flash test's own bound).
 """
 
 import numpy as np
@@ -23,12 +27,14 @@ from cartseg_tpu_torch.ops.cuda import build
 from cartseg_tpu_torch.ops.cuda.cc import (cc_batch, cc_batch_plain,
                                            reach_batch, reach_batch_plain)
 from cartseg_tpu_torch.ops.cuda.edt import edt_batch_jfa, edt_batch_plain
+from cartseg_tpu_torch.ops.cuda.flash_attention import (
+    flash_relpos_fwd, flash_relpos_fwd_plain)
 from cartseg_tpu_torch.ops.cuda.lsr import (lsr_bwd, lsr_bwd_plain, lsr_fwd,
                                             lsr_fwd_plain)
 from cartseg_tpu_torch.ops.cuda.median import median_rows, median_rows_plain
 from cartseg_tpu_torch.utils.synthetic import (blob_masks, ring_cuts_mask,
                                                spiral_mask)
-from torch_port_helpers import cuda_device  # noqa: F401
+from torch_port_helpers import cuda_device, sam_official_state_dict  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 
@@ -194,6 +200,91 @@ def test_launch_counters_count_kernel_launches_only(cuda_device):
     lab = torch.zeros(3, dtype=torch.int64, device=cuda_device)
     lsr_fwd(x, lab, 0.2, 255)
     lsr_bwd(x, lab, torch.ones(3, device=cuda_device), 0.2, 255)
+    fa = [t.to(cuda_device) for t in _flash_inputs(1, 4, 32, torch.float32)]
+    flash_relpos_fwd(*fa, 0.125, 4)
     assert build.LAUNCHES == {"cc": 1, "reach": 1, "median": 1, "edt": 1,
-                              "lsr_fwd": 1, "lsr_bwd": 1}
+                              "lsr_fwd": 1, "lsr_bwd": 1, "flash_fwd": 1}
+    build.reset_launch_counts()
+
+
+def _flash_inputs(bnh, g, hd, dtype, seed=0):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    S = g * g
+    q, k, v = (torch.randn((bnh, S, hd), generator=gen) for _ in range(3))
+    rh, rw = (0.5 * torch.randn((bnh, S, g), generator=gen)
+              for _ in range(2))
+    return [t.to(dtype) for t in (q, k, v, rh, rw)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bnh,g,hd", [(3, 16, 32), (3, 16, 64),
+                                      (12, 64, 64), (2, 10, 64),
+                                      (1, 23, 32)])
+def test_flash_kernel_within_tolerance_of_plain(cuda_device, bnh, g, hd,
+                                                dtype):
+    """The ViT-B global block [12,4096,64], the tests' g = 16 shapes, and
+    grids whose S is not a multiple of the 64-row tiles."""
+    ts = [t.to(cuda_device) for t in _flash_inputs(bnh, g, hd, dtype)]
+    got = flash_relpos_fwd(*ts, hd ** -0.5, g)
+    torch.cuda.synchronize()
+    want = flash_relpos_fwd_plain(*ts, hd ** -0.5, g)
+    assert got.dtype == dtype and got.shape == (bnh, g * g, hd)
+    rel = float((got.float() - want.float()).abs().max()
+                / want.float().abs().max())
+    assert rel <= (1e-5 if dtype == torch.float32 else 3e-2), rel
+
+
+def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    ts = [t.to(cuda_device) for t in _flash_inputs(2, 8, 48, torch.float32)]
+    with pytest.raises(ValueError, match="head_dim 48"):
+        flash_relpos_fwd(*ts, 0.1, 8)
+    ts = [t.to(cuda_device) for t in _flash_inputs(2, 8, 32, torch.float32)]
+    with pytest.raises(TypeError, match="one type"):
+        flash_relpos_fwd(*[t.half() for t in ts], 0.1, 8)
+    with pytest.raises(ValueError, match="tensors on"):
+        flash_relpos_fwd(ts[0], ts[1].cpu(), *ts[2:], 0.1, 8)
+    q = ts[0].transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_relpos_fwd(q, *ts[1:], 0.1, 8)
+    with pytest.raises(ValueError, match="grid_size"):
+        flash_relpos_fwd(*ts, 0.1, 7)
+
+
+def test_flash_backward_on_the_card_raises(cuda_device):
+    from cartseg_tpu_torch.ops.flash_attention import flash_attention_relpos
+
+    ts = [t.to(cuda_device) for t in _flash_inputs(2, 16, 32, torch.float32)]
+    q = ts[0].requires_grad_(True)
+    out = flash_attention_relpos(q, *ts[1:], scale=0.2, grid_size=16)
+    with pytest.raises(NotImplementedError, match="Queue 2 item 6"):
+        out.sum().backward()
+
+
+def test_sam_predictor_on_the_card_matches_the_cpu(cuda_device):
+    """A small SAM (img 256, one global block on the flash kernel) on the
+    card in fp32 against the CPU's plain lanes: features and logits."""
+    from cartseg_tpu_torch.device import set_fp32_policy
+    from cartseg_tpu_torch.models.sam import SamConfig, SamPredictor
+
+    set_fp32_policy()
+    cfg = SamConfig(img_size=256, encoder_dim=64, encoder_depth=2,
+                    encoder_heads=2, global_attn_indexes=(1,), window_size=6,
+                    prompt_dim=32, decoder_heads=2, decoder_mlp_dim=64,
+                    global_attn_flash=True)
+    sd = sam_official_state_dict(cfg, seed=0)
+    img = np.random.default_rng(0).integers(0, 256, (128, 96, 3), np.uint8)
+    out = {}
+    build.reset_launch_counts()
+    for dev in ("cpu", cuda_device):
+        p = SamPredictor(sd, cfg, device=dev)
+        f = p.set_image(img).float().cpu()
+        m, iou, _ = p.predict(point_coords=np.array([[40, 50]]),
+                              point_labels=np.array([1]),
+                              box=np.array([10, 10, 80, 100]),
+                              return_logits=True)
+        out[str(dev)] = (f, m, iou)
+    assert build.LAUNCHES["flash_fwd"] == 1
+    (fc, mc, ic), (fg, mg, ig) = out["cpu"], out[str(cuda_device)]
+    assert (fg - fc).abs().max() <= 1e-4
+    assert np.abs(mg - mc).max() <= 1e-3 and np.abs(ig - ic).max() <= 1e-4
     build.reset_launch_counts()

@@ -180,3 +180,49 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(before)
+
+
+def sam_mask_downscaling_shapes(cfg) -> dict:
+    """Official-checkpoint shapes of the mask-prompt path
+    (`prompt_encoder.mask_downscaling.*`), which neither package builds."""
+    mic, pd = cfg.mask_in_chans, cfg.prompt_dim
+    p = "prompt_encoder.mask_downscaling"
+    return {f"{p}.0.weight": (mic // 4, 1, 2, 2), f"{p}.0.bias": (mic // 4,),
+            f"{p}.1.weight": (mic // 4,), f"{p}.1.bias": (mic // 4,),
+            f"{p}.3.weight": (mic, mic // 4, 2, 2), f"{p}.3.bias": (mic,),
+            f"{p}.4.weight": (mic,), f"{p}.4.bias": (mic,),
+            f"{p}.6.weight": (pd, mic, 1, 1), f"{p}.6.bias": (pd,)}
+
+
+def sam_official_state_dict(cfg, seed: int = 0) -> dict:
+    """A full official-named SAM state dict (mask_downscaling included)
+    of float32 CPU tensors drawn with numpy from `seed`. The shapes are
+    the port's own `Sam(cfg)` (built on the meta device) plus the
+    mask-prompt path's. Scales keep a forward pass lively: matrices
+    N(0, 1/fan_in), norm weights 1 + 0.1 N, biases 0.02 N, embeddings and
+    the Fourier matrix N(0, 1), rel-pos tables 0.3 N, pos_embed 0.1 N."""
+    from cartseg_tpu_torch.models.sam import Sam
+
+    with torch.device("meta"):
+        shapes = {k: tuple(v.shape) for k, v in Sam(cfg).state_dict().items()}
+    shapes.update(sam_mask_downscaling_shapes(cfg))
+    r = np.random.default_rng(seed)
+    sd = {}
+    for k, sh in shapes.items():
+        z = r.standard_normal(sh)
+        if k.endswith((".rel_pos_h", ".rel_pos_w")):
+            a = 0.3 * z
+        elif k.endswith(".pos_embed"):
+            a = 0.1 * z
+        elif k.endswith(".bias"):
+            a = 0.02 * z
+        elif len(sh) == 1:
+            a = 1.0 + 0.1 * z
+        elif (k.endswith(("_embed.weight", "_token.weight",
+                          "_tokens.weight", "gaussian_matrix"))
+              or ".point_embeddings." in k):
+            a = z
+        else:
+            a = z / np.sqrt(np.prod(sh[1:]))
+        sd[k] = torch.from_numpy(a.astype(np.float32))
+    return sd
