@@ -104,7 +104,11 @@ def jax_sam_to_state_dict(variables_np: Mapping,
     cartseg_tpu/models/sam.py `convert_torch_sam` (no mask_downscaling
     keys, which that converter drops). Linear kernels [in,out] -> weight
     [out,in]; conv kernels [kh,kw,in,out] -> [out,in,kh,kw]; transposed-
-    conv kernels are un-flipped in space and go back to [in,out,kh,kw]."""
+    conv kernels are un-flipped in space and go back to [in,out,kh,kw].
+
+    Every one of those maps is linear (a transpose, a reshape or a flip),
+    so the same function maps a JAX gradient tree, `{"params":
+    grads["params"]}`, onto the official names of the port's `.grad`s."""
     from cartseg_tpu_torch.models.sam import SamConfig
 
     c = cfg or SamConfig()

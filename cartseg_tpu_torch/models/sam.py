@@ -20,8 +20,17 @@ ones 1e-5, GELU is exact. Public tensors keep the JAX layouts: images
 
 With `SamConfig.global_attn_flash` the global blocks run the decomposed
 rel-pos flash attention (ops/flash_attention.py): the hand-written CUDA
-kernel on the card, its plain version on the CPU. The bare config keeps
-it off; `SamPredictor` turns it on, as `TpuSamPredictor` does.
+kernels on the card (forward, and the two backward kernels when a
+gradient is taken), their plain versions on the CPU. The bare config
+keeps it off; `SamPredictor` turns it on, as `TpuSamPredictor` does.
+
+`Sam(cfg, dtype)` takes a compute dtype with flax's meaning (JAX's
+`Sam(cfg, dtype=)`): the parameters stay float32; every Linear and Conv
+casts its input, weight and bias to `dtype` and returns `dtype` (flax
+`nn.Dense` / `nn.Conv` with `dtype=`), every LayerNorm computes in
+float32 and returns `dtype` (flax `nn.LayerNorm(dtype=)`), and the
+residual stream follows. Only those layers cast, so `torch.autocast`
+(which keeps layer_norm outputs in float32) is not used.
 """
 
 from __future__ import annotations
@@ -84,6 +93,69 @@ class SamConfig:
         return self.num_multimask_outputs + 1
 
 
+# ------------------------------------------ layers with a compute dtype
+
+def _cast(t: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
+    return None if t is None else t.to(dtype)
+
+
+class _Linear(nn.Linear):
+    """flax nn.Dense(dtype=): float32 parameters; input, weight and bias
+    cast to `compute_dtype`, the output in it."""
+
+    def __init__(self, fin: int, fout: int, bias: bool = True,
+                 compute_dtype=torch.float32):
+        super().__init__(fin, fout, bias=bias)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), _cast(self.bias, dt))
+
+
+class _Conv2d(nn.Conv2d):
+    """flax nn.Conv(dtype=), as `_Linear`."""
+
+    def __init__(self, *args, compute_dtype=torch.float32, **kw):
+        super().__init__(*args, **kw)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return self._conv_forward(x.to(dt), self.weight.to(dt),
+                                  _cast(self.bias, dt))
+
+
+class _ConvTranspose2d(nn.ConvTranspose2d):
+    """flax nn.ConvTranspose(dtype=), as `_Linear`."""
+
+    def __init__(self, *args, compute_dtype=torch.float32, **kw):
+        super().__init__(*args, **kw)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.conv_transpose2d(x.to(dt), self.weight.to(dt),
+                                  _cast(self.bias, dt), self.stride,
+                                  self.padding, self.output_padding,
+                                  self.groups, self.dilation)
+
+
+class _LayerNorm(nn.LayerNorm):
+    """flax nn.LayerNorm(dtype=): statistics and affine in float32, the
+    output in `compute_dtype`."""
+
+    def __init__(self, dim: int, eps: float, compute_dtype=torch.float32):
+        super().__init__(dim, eps=eps)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        f = torch.float32
+        return F.layer_norm(x.to(f), self.normalized_shape,
+                            self.weight.to(f), self.bias.to(f),
+                            self.eps).to(self.compute_dtype)
+
+
 # ------------------------------------------------ image encoder (ViT)
 
 def _get_rel_pos(q_size: int, k_size: int, rel_pos: torch.Tensor):
@@ -114,15 +186,16 @@ class ViTAttention(nn.Module):
     relative position embeddings (official image_encoder.Attention)."""
 
     def __init__(self, dim: int, num_heads: int, input_size: int,
-                 softmax_fp32: bool = True, use_flash: bool = False):
+                 softmax_fp32: bool = True, use_flash: bool = False,
+                 dtype=torch.float32):
         super().__init__()
         self.num_heads = num_heads
         self.input_size = input_size
         self.softmax_fp32 = softmax_fp32
         self.use_flash = use_flash
         head_dim = dim // num_heads
-        self.qkv = nn.Linear(dim, dim * 3)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = _Linear(dim, dim * 3, compute_dtype=dtype)
+        self.proj = _Linear(dim, dim, compute_dtype=dtype)
         self.rel_pos_h = nn.Parameter(torch.zeros(2 * input_size - 1,
                                                   head_dim))
         self.rel_pos_w = nn.Parameter(torch.zeros(2 * input_size - 1,
@@ -191,10 +264,11 @@ def _window_unpartition(wins, window: int, pad_hw, hw):
 
 
 class MLPBlock(nn.Module):
-    def __init__(self, dim: int, hidden: int, act: nn.Module):
+    def __init__(self, dim: int, hidden: int, act: nn.Module,
+                 dtype=torch.float32):
         super().__init__()
-        self.lin1 = nn.Linear(dim, hidden)
-        self.lin2 = nn.Linear(hidden, dim)
+        self.lin1 = _Linear(dim, hidden, compute_dtype=dtype)
+        self.lin2 = _Linear(hidden, dim, compute_dtype=dtype)
         self.act = act
 
     def forward(self, x):
@@ -204,17 +278,19 @@ class MLPBlock(nn.Module):
 class ViTBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
                  window_size: int, grid_size: int,
-                 softmax_fp32: bool = True, use_flash: bool = False):
+                 softmax_fp32: bool = True, use_flash: bool = False,
+                 dtype=torch.float32):
         super().__init__()
         self.window_size = window_size          # 0 => global attention
-        self.norm1 = nn.LayerNorm(dim, eps=1e-6)
+        self.norm1 = _LayerNorm(dim, 1e-6, dtype)
         attn_size = window_size if window_size > 0 else grid_size
         self.attn = ViTAttention(dim, num_heads, attn_size,
                                  softmax_fp32=softmax_fp32,
-                                 use_flash=use_flash and window_size == 0)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
+                                 use_flash=use_flash and window_size == 0,
+                                 dtype=dtype)
+        self.norm2 = _LayerNorm(dim, 1e-6, dtype)
         self.mlp = MLPBlock(dim, int(dim * mlp_ratio),
-                            nn.GELU(approximate="none"))
+                            nn.GELU(approximate="none"), dtype)
 
     def forward(self, x):
         shortcut = x
@@ -231,51 +307,58 @@ class ViTBlock(nn.Module):
 
 class LayerNorm2d(nn.Module):
     """LayerNorm over the channels of an NCHW map (official
-    common.LayerNorm2d)."""
+    common.LayerNorm2d), in float32, the output in `dtype`."""
 
-    def __init__(self, channels: int, eps: float = 1e-6):
+    def __init__(self, channels: int, eps: float = 1e-6,
+                 dtype=torch.float32):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.eps = eps
+        self.compute_dtype = dtype
 
     def forward(self, x):
-        y = F.layer_norm(x.permute(0, 2, 3, 1), x.shape[1:2], self.weight,
-                         self.bias, self.eps)
-        return y.permute(0, 3, 1, 2)
+        f = torch.float32
+        y = F.layer_norm(x.permute(0, 2, 3, 1).to(f), x.shape[1:2],
+                         self.weight.to(f), self.bias.to(f), self.eps)
+        return y.to(self.compute_dtype).permute(0, 3, 1, 2)
 
 
 class PatchEmbed(nn.Module):
-    def __init__(self, patch: int, dim: int):
+    def __init__(self, patch: int, dim: int, dtype=torch.float32):
         super().__init__()
-        self.proj = nn.Conv2d(3, dim, patch, stride=patch)
+        self.proj = _Conv2d(3, dim, patch, stride=patch, compute_dtype=dtype)
 
     def forward(self, x_nhwc):
         return self.proj(x_nhwc.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
 class ImageEncoderViT(nn.Module):
-    def __init__(self, cfg: SamConfig):
+    def __init__(self, cfg: SamConfig, dtype=torch.float32):
         super().__init__()
         c = cfg
         g = c.embed_hw
-        self.patch_embed = PatchEmbed(c.patch_size, c.encoder_dim)
+        self.patch_embed = PatchEmbed(c.patch_size, c.encoder_dim, dtype)
         self.pos_embed = nn.Parameter(torch.zeros(1, g, g, c.encoder_dim))
         self.blocks = nn.ModuleList([
             ViTBlock(c.encoder_dim, c.encoder_heads, c.encoder_mlp_ratio,
                      0 if i in c.global_attn_indexes else c.window_size, g,
                      softmax_fp32=c.attn_softmax_fp32,
-                     use_flash=c.global_attn_flash)
+                     use_flash=c.global_attn_flash, dtype=dtype)
             for i in range(c.encoder_depth)])
         self.neck = nn.Sequential(
-            nn.Conv2d(c.encoder_dim, c.prompt_dim, 1, bias=False),
-            LayerNorm2d(c.prompt_dim),
-            nn.Conv2d(c.prompt_dim, c.prompt_dim, 3, padding=1, bias=False),
-            LayerNorm2d(c.prompt_dim))
+            _Conv2d(c.encoder_dim, c.prompt_dim, 1, bias=False,
+                    compute_dtype=dtype),
+            LayerNorm2d(c.prompt_dim, dtype=dtype),
+            _Conv2d(c.prompt_dim, c.prompt_dim, 3, padding=1, bias=False,
+                    compute_dtype=dtype),
+            LayerNorm2d(c.prompt_dim, dtype=dtype))
 
     def forward(self, x):
-        """x: (B, img, img, 3) preprocessed floats -> (B, g, g, C)."""
-        y = self.patch_embed(x) + self.pos_embed.to(x.dtype)
+        """x: (B, img, img, 3) preprocessed floats -> (B, g, g, C) in the
+        compute dtype."""
+        y = self.patch_embed(x)
+        y = y + self.pos_embed.to(y.dtype)
         for blk in self.blocks:
             y = blk(y)
         return self.neck(y.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
@@ -346,14 +429,15 @@ class DecoderAttention(nn.Module):
     """q/k/v-projected attention with internal downsampling (official
     transformer.Attention)."""
 
-    def __init__(self, dim: int, num_heads: int, downsample_rate: int = 1):
+    def __init__(self, dim: int, num_heads: int, downsample_rate: int = 1,
+                 dtype=torch.float32):
         super().__init__()
         inner = dim // downsample_rate
         self.num_heads = num_heads
-        self.q_proj = nn.Linear(dim, inner)
-        self.k_proj = nn.Linear(dim, inner)
-        self.v_proj = nn.Linear(dim, inner)
-        self.out_proj = nn.Linear(inner, dim)
+        self.q_proj = _Linear(dim, inner, compute_dtype=dtype)
+        self.k_proj = _Linear(dim, inner, compute_dtype=dtype)
+        self.v_proj = _Linear(dim, inner, compute_dtype=dtype)
+        self.out_proj = _Linear(inner, dim, compute_dtype=dtype)
 
     def forward(self, q, k, v):
         q, k, v = self.q_proj(q), self.k_proj(k), self.v_proj(v)
@@ -374,19 +458,21 @@ class DecoderAttention(nn.Module):
 
 class TwoWayAttentionBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_dim: int,
-                 skip_first_layer_pe: bool):
+                 skip_first_layer_pe: bool, dtype=torch.float32):
         super().__init__()
         self.skip_first_layer_pe = skip_first_layer_pe
         # decoder LayerNorms: torch's default eps 1e-5 (official
         # TwoWayTransformer), unlike the encoder's 1e-6
-        self.self_attn = DecoderAttention(dim, num_heads)
-        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.cross_attn_token_to_image = DecoderAttention(dim, num_heads, 2)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.mlp = MLPBlock(dim, mlp_dim, nn.ReLU())
-        self.norm3 = nn.LayerNorm(dim, eps=1e-5)
-        self.norm4 = nn.LayerNorm(dim, eps=1e-5)
-        self.cross_attn_image_to_token = DecoderAttention(dim, num_heads, 2)
+        self.self_attn = DecoderAttention(dim, num_heads, dtype=dtype)
+        self.norm1 = _LayerNorm(dim, 1e-5, dtype)
+        self.cross_attn_token_to_image = DecoderAttention(dim, num_heads, 2,
+                                                          dtype)
+        self.norm2 = _LayerNorm(dim, 1e-5, dtype)
+        self.mlp = MLPBlock(dim, mlp_dim, nn.ReLU(), dtype)
+        self.norm3 = _LayerNorm(dim, 1e-5, dtype)
+        self.norm4 = _LayerNorm(dim, 1e-5, dtype)
+        self.cross_attn_image_to_token = DecoderAttention(dim, num_heads, 2,
+                                                          dtype)
 
     def forward(self, queries, keys, query_pe, key_pe):
         if self.skip_first_layer_pe:
@@ -406,16 +492,16 @@ class TwoWayAttentionBlock(nn.Module):
 
 
 class TwoWayTransformer(nn.Module):
-    def __init__(self, cfg: SamConfig):
+    def __init__(self, cfg: SamConfig, dtype=torch.float32):
         super().__init__()
         d = cfg.prompt_dim
         self.layers = nn.ModuleList([
             TwoWayAttentionBlock(d, cfg.decoder_heads, cfg.decoder_mlp_dim,
-                                 skip_first_layer_pe=(i == 0))
+                                 skip_first_layer_pe=(i == 0), dtype=dtype)
             for i in range(cfg.decoder_depth)])
         self.final_attn_token_to_image = DecoderAttention(
-            d, cfg.decoder_heads, 2)
-        self.norm_final_attn = nn.LayerNorm(d, eps=1e-5)
+            d, cfg.decoder_heads, 2, dtype)
+        self.norm_final_attn = _LayerNorm(d, 1e-5, dtype)
 
     def forward(self, image_embedding, image_pe, point_embedding):
         """image_embedding / image_pe: (B, g, g, C); point_embedding:
@@ -433,10 +519,11 @@ class TwoWayTransformer(nn.Module):
 
 
 class MLP(nn.Module):
-    def __init__(self, dims):
+    def __init__(self, dims, dtype=torch.float32):
         super().__init__()
         self.layers = nn.ModuleList(
-            [nn.Linear(a, b) for a, b in zip(dims[:-1], dims[1:])])
+            [_Linear(a, b, compute_dtype=dtype)
+             for a, b in zip(dims[:-1], dims[1:])])
 
     def forward(self, x):
         for i, lin in enumerate(self.layers):
@@ -447,21 +534,22 @@ class MLP(nn.Module):
 
 
 class MaskDecoder(nn.Module):
-    def __init__(self, cfg: SamConfig):
+    def __init__(self, cfg: SamConfig, dtype=torch.float32):
         super().__init__()
         d, nm = cfg.prompt_dim, cfg.num_mask_tokens
-        self.transformer = TwoWayTransformer(cfg)
+        self.transformer = TwoWayTransformer(cfg, dtype)
         self.iou_token = nn.Embedding(1, d)
         self.mask_tokens = nn.Embedding(nm, d)
         self.output_upscaling = nn.Sequential(
-            nn.ConvTranspose2d(d, d // 4, 2, stride=2),
-            LayerNorm2d(d // 4),
+            _ConvTranspose2d(d, d // 4, 2, stride=2, compute_dtype=dtype),
+            LayerNorm2d(d // 4, dtype=dtype),
             nn.GELU(approximate="none"),
-            nn.ConvTranspose2d(d // 4, d // 8, 2, stride=2),
+            _ConvTranspose2d(d // 4, d // 8, 2, stride=2,
+                             compute_dtype=dtype),
             nn.GELU(approximate="none"))
         self.output_hypernetworks_mlps = nn.ModuleList(
-            [MLP((d, d, d, d // 8)) for _ in range(nm)])
-        self.iou_prediction_head = MLP((d, d, d, nm))
+            [MLP((d, d, d, d // 8), dtype) for _ in range(nm)])
+        self.iou_prediction_head = MLP((d, d, d, nm), dtype)
 
     def forward(self, image_embeddings, image_pe, sparse_prompt,
                 dense_prompt):
@@ -491,15 +579,24 @@ class MaskDecoder(nn.Module):
 
 class Sam(nn.Module):
     """The three parts. The predictor calls them separately, so the
-    image embedding is computed once per frame. `Sam(cfg).to(
-    torch.bfloat16)` runs in bf16 (the `attn_softmax_fp32=False` lane)."""
+    image embedding is computed once per frame.
 
-    def __init__(self, cfg: Optional[SamConfig] = None):
+    `dtype` is the compute dtype, as JAX's `Sam(cfg, dtype=)`: the
+    parameters stay float32 and `Sam(cfg, dtype=torch.bfloat16)` computes
+    the linears, convolutions and residual stream in bf16 (LayerNorm
+    statistics in float32, and the attention softmax unless
+    `attn_softmax_fp32=False`). `Sam(cfg).to(
+    torch.bfloat16)` is not that: it stores bf16 parameters and still
+    computes in float32."""
+
+    def __init__(self, cfg: Optional[SamConfig] = None,
+                 dtype=torch.float32):
         super().__init__()
         self.cfg = cfg or SamConfig()
-        self.image_encoder = ImageEncoderViT(self.cfg)
+        self.dtype = dtype
+        self.image_encoder = ImageEncoderViT(self.cfg, dtype)
         self.prompt_encoder = PromptEncoder(self.cfg)
-        self.mask_decoder = MaskDecoder(self.cfg)
+        self.mask_decoder = MaskDecoder(self.cfg, dtype)
 
     def preprocess(self, x_u8):
         """(B, H, W, 3) uint8/float RGB (longest side already at
@@ -528,8 +625,10 @@ class Sam(nn.Module):
                                  dense)
 
 
-def build_sam_vit_b(cfg: Optional[SamConfig] = None) -> Sam:
-    return Sam(cfg or SamConfig())
+def build_sam_vit_b(dtype=torch.float32,
+                    cfg: Optional[SamConfig] = None) -> Sam:
+    """JAX's `build_sam_vit_b(dtype=jnp.float32, cfg=None)`."""
+    return Sam(cfg or SamConfig(), dtype)
 
 
 def strip_mask_downscaling(state_dict: Mapping) -> dict:

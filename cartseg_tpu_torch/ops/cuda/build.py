@@ -10,10 +10,11 @@ one nvcc process each, and are then linked:
     nvcc -gencode arch=compute_90a,code=sm_90a -shared
          -o _build/libcartseg_kernels_<hash>.so *.o
 
-The file name carries a hash of the sources and flags, so an edited
-source rebuilds and a stale library is never loaded. Nothing is built
-or imported at module import time: the CPU tests import every module,
-and this machine class has no nvcc.
+The file name carries a hash of the sources, the `csrc/*.cuh` headers
+they include and the flags, so an edited source rebuilds and a stale
+library is never loaded. Nothing is built or imported at module import
+time: the CPU tests import every module, and this machine class has no
+nvcc.
 
 Each wrapper counts its launches in `LAUNCHES` (one per call that
 launched its kernel), so a run can show that the main path went
@@ -38,7 +39,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 LAUNCHES = {"cc": 0, "reach": 0, "median": 0, "edt": 0, "lsr_fwd": 0,
-            "lsr_bwd": 0, "flash_fwd": 0}
+            "lsr_bwd": 0, "flash_fwd": 0, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -57,9 +59,15 @@ _SIGNATURES = {
     "cartseg_lsr_fwd": (_P, _P, _P, _L, _I, _F, _F, _I, _P),
     # (x, labels, g, grad, n, C, lb_pos, lb_neg, ignore, stream)
     "cartseg_lsr_bwd": (_P, _P, _P, _P, _L, _I, _F, _F, _I, _P),
-    # (q, k, v, rel_h, rel_w, out, bnh, S, g, hd, bf16, scale, stream)
-    "cartseg_flash_relpos_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                 _F, _P),
+    # (q, k, v, rel_h, rel_w, out, lse or null, bnh, S, g, hd, bf16, scale,
+    #  stream)
+    "cartseg_flash_relpos_fwd": (_P,) * 7 + (_I,) * 5 + (_F, _P),
+    # (q, k, v, rel_h, rel_w, dO, lse, D, dq, drel_h, drel_w, bnh, S, g, hd,
+    #  bf16, scale, stream)
+    "cartseg_flash_relpos_bwd_dq": (_P,) * 11 + (_I,) * 5 + (_F, _P),
+    # (q, k, v, rel_h, rel_w, dO, lse, D, dk, dv, bnh, S, g, hd, bf16,
+    #  scale, stream)
+    "cartseg_flash_relpos_bwd_dkv": (_P,) * 10 + (_I,) * 5 + (_F, _P),
 }
 
 
@@ -88,7 +96,7 @@ def _sources():
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):      # sources and headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libcartseg_kernels_{h.hexdigest()[:16]}.so"

@@ -10,7 +10,10 @@
 // -1e30, IEEE expf), output in the inputs' type. The (S, S) logits and
 // bias are never written to device memory: a block rebuilds each 64x64
 // tile of them in registers from Q, K and the two [S, g] factors, which
-// is what the TPU kernel kept out of HBM too.
+// is what the TPU kernel kept out of HBM too. Given a non-null lse (the
+// training forward) it also writes each row's fp32 logsumexp m + log(l)
+// for the backward (flash_relpos_bwd.cu), as the TPU kernel's lse_ref
+// (:129-130); the inference call passes null and writes nothing.
 //
 // Design (simple first): one block of 256 threads per (bnh, 64 query
 // rows); a loop inside the block streams 64-key tiles of K and V through
@@ -32,45 +35,15 @@
 // the CUDA cores (bf16 inputs are widened on load), 4x4 outer products
 // from shared memory; tensor cores (mma/wgmma) and TMA are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include "flash_relpos_common.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;       // query rows per block
-constexpr int kBK = 64;       // keys per tile
-constexpr int kThreads = 256;
+using namespace flash_relpos;
+
 constexpr float kNegInit = -1e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void from_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void from_f(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-// 4 consecutive elements (16-byte / 8-byte aligned) widened to fp32
-__device__ __forceinline__ float4 load4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(p);
-  float2 a = __bfloat1622float2(p2[0]);
-  float2 b = __bfloat1622float2(p2[1]);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-// row stride of the [64, g] bias slices: == 4 (mod 8) floats, so the two
-// query-row groups of a warp (4 rows apart) land 16 banks apart
-__host__ __device__ __forceinline__ int rel_stride(int g) {
-  return g + (12 - g % 8) % 8;
-}
-
-template <int HD>
-__host__ __device__ constexpr int row_stride() { return HD + 4; }
 
 template <int HD>
 size_t smem_bytes(int g) {
@@ -86,8 +59,8 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_relpos_fwd(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ rel_h,
-                 const T* __restrict__ rel_w, T* __restrict__ out, int S,
-                 int g, float scale) {
+                 const T* __restrict__ rel_w, T* __restrict__ out,
+                 float* __restrict__ lse, int S, int g, float scale) {
   constexpr int QST = row_stride<HD>();
   constexpr int KST = row_stride<HD>();
   constexpr int PST = kBK + 4;
@@ -111,19 +84,8 @@ flash_relpos_fwd(const T* __restrict__ q, const T* __restrict__ k,
   const size_t rbase = (size_t)blockIdx.y * S * g;
 
   // the block's query rows, and its rows of the two bias factors
-  for (int e = tid; e < kBQ * HD / 4; e += kThreads) {
-    const int r = e / (HD / 4), d = (e % (HD / 4)) * 4;
-    float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < S) t = load4(q + base + (size_t)(q0 + r) * HD + d);
-    *reinterpret_cast<float4*>(qs + r * QST + d) = t;
-  }
-  for (int e = tid; e < kBQ * g; e += kThreads) {
-    const int r = e / g, c = e - r * g;
-    const bool ok = q0 + r < S;
-    const size_t off = rbase + (size_t)q0 * g + e;
-    rhs[r * RST + c] = ok ? to_f(rel_h[off]) : 0.f;
-    rws[r * RST + c] = ok ? to_f(rel_w[off]) : 0.f;
-  }
+  load_rows<T, HD>(qs, q + base, q0, S);
+  load_rel(rhs, rws, rel_h + rbase, rel_w + rbase, q0, S, g, RST);
 
   float m[4], l[4], acc[4][CD];
 #pragma unroll
@@ -258,13 +220,16 @@ flash_relpos_fwd(const T* __restrict__ q, const T* __restrict__ k,
     T* o = out + base + (size_t)r * HD + tx * CD;
 #pragma unroll
     for (int jj = 0; jj < CD; ++jj) from_f(o + jj, acc[i][jj] / l[i]);
+    // the training forward's logsumexp, m + log(l) as the TPU kernel
+    if (lse != nullptr && tx == 0)
+      lse[(size_t)blockIdx.y * S + r] = m[i] + logf(l[i]);
   }
 }
 
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, const void* rh,
-           const void* rw, void* out, int bnh, int S, int g, float scale,
-           cudaStream_t stream) {
+           const void* rw, void* out, float* lse, int bnh, int S, int g,
+           float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<HD>(g);
   auto kern = flash_relpos_fwd<T, HD>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -274,7 +239,7 @@ int launch(const void* q, const void* k, const void* v, const void* rh,
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(rh),
-      static_cast<const T*>(rw), static_cast<T*>(out), S, g, scale);
+      static_cast<const T*>(rw), static_cast<T*>(out), lse, S, g, scale);
   return (int)cudaGetLastError();
 }
 
@@ -282,22 +247,28 @@ int launch(const void* q, const void* k, const void* v, const void* rh,
 
 // q, k, v, out: [bnh, S, hd]; rel_h, rel_w: [bnh, S, g]; all contiguous,
 // of one type: float32 (bf16 == 0) or bfloat16 (bf16 == 1). S == g*g.
+// lse: null (inference: nothing written) or fp32 [bnh, S], the rows'
+// logsumexp for the backward.
 extern "C" int cartseg_flash_relpos_fwd(const void* q, const void* k,
                                         const void* v, const void* rel_h,
                                         const void* rel_w, void* out,
-                                        int bnh, int S, int g, int hd,
-                                        int bf16, float scale, void* stream) {
+                                        void* lse, int bnh, int S, int g,
+                                        int hd, int bf16, float scale,
+                                        void* stream) {
   if (bnh <= 0 || S <= 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
+  float* l = static_cast<float*>(lse);
   if (hd == 64 && !bf16)
-    return launch<float, 64>(q, k, v, rel_h, rel_w, out, bnh, S, g, scale, st);
+    return launch<float, 64>(q, k, v, rel_h, rel_w, out, l, bnh, S, g, scale,
+                             st);
   if (hd == 64 && bf16)
-    return launch<__nv_bfloat16, 64>(q, k, v, rel_h, rel_w, out, bnh, S, g,
-                                     scale, st);
+    return launch<__nv_bfloat16, 64>(q, k, v, rel_h, rel_w, out, l, bnh, S,
+                                     g, scale, st);
   if (hd == 32 && !bf16)
-    return launch<float, 32>(q, k, v, rel_h, rel_w, out, bnh, S, g, scale, st);
+    return launch<float, 32>(q, k, v, rel_h, rel_w, out, l, bnh, S, g, scale,
+                             st);
   if (hd == 32 && bf16)
-    return launch<__nv_bfloat16, 32>(q, k, v, rel_h, rel_w, out, bnh, S, g,
-                                     scale, st);
+    return launch<__nv_bfloat16, 32>(q, k, v, rel_h, rel_w, out, l, bnh, S,
+                                     g, scale, st);
   return (int)cudaErrorInvalidValue;
 }

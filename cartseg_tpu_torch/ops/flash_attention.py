@@ -4,18 +4,22 @@ cartseg_tpu/ops/pallas/flash_attention.py).
 
 `supported` is the JAX package's predicate, so the port sends the same
 blocks to this lane as JAX does (models/sam.py). `flash_attention_relpos`
-runs the hand-written CUDA kernel on CUDA tensors (ops/cuda/
+runs the hand-written CUDA kernels on CUDA tensors (ops/cuda/
 flash_attention.py) and `flash_attention_relpos_plain` on CPU tensors.
-The CUDA lane is forward only: its backward kernels (dq/drel, dk/dv) are
-ROADMAP.md Queue 2 item 6, so a backward through it raises. The plain
-lane is differentiable by autograd.
+Both lanes are differentiable. On the card an autograd Function, the
+counterpart of JAX's custom VJP `_flash`, runs the forward kernel (which
+writes the logsumexp only when a gradient is needed) and, in its
+backward, the two backward kernels (dq/drel_h/drel_w, dk/dv); it never
+calls a plain version. The CPU lane is autograd through the plain
+forward.
 """
 
 from __future__ import annotations
 
 import torch
 
-from cartseg_tpu_torch.ops.cuda.flash_attention import flash_relpos_fwd
+from cartseg_tpu_torch.ops.cuda.flash_attention import (flash_relpos_bwd,
+                                                        flash_relpos_fwd)
 from cartseg_tpu_torch.ops.cuda.flash_attention import \
     flash_relpos_fwd_plain as flash_attention_relpos_plain
 
@@ -32,19 +36,27 @@ def supported(grid_size: int, seq: int, head_dim: int) -> bool:
 
 
 class _FlashRelposCuda(torch.autograd.Function):
-    """The CUDA forward behind autograd; its backward is not ported."""
+    """The CUDA kernels behind autograd (JAX: `_flash` and its VJP)."""
 
     @staticmethod
     def forward(ctx, q, k, v, rel_h, rel_w, scale, grid_size):
-        return flash_relpos_fwd(q, k, v, rel_h, rel_w, scale, grid_size)
+        # grad mode is off in here: needs_input_grad says whether the
+        # backward will run, and so whether the forward writes the lse
+        ctx.scale, ctx.grid_size = scale, grid_size
+        if not any(ctx.needs_input_grad[:5]):
+            return flash_relpos_fwd(q, k, v, rel_h, rel_w, scale, grid_size)
+        out, lse = flash_relpos_fwd(q, k, v, rel_h, rel_w, scale, grid_size,
+                                    with_lse=True)
+        ctx.save_for_backward(q, k, v, rel_h, rel_w, out, lse)
+        return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        raise NotImplementedError(
-            "flash_attention_relpos: the backward kernels (dq/drel_h/"
-            "drel_w and dk/dv) are not ported yet (ROADMAP.md Queue 2 "
-            "item 6); train through the plain lane on the CPU or set "
-            "SamConfig.global_attn_flash=False")
+        # the gradient through models/sam.py's reshape + permute of the
+        # output arrives strided; the kernels read dense rows
+        grads = flash_relpos_bwd(*ctx.saved_tensors, grad_out.contiguous(),
+                                 ctx.scale, ctx.grid_size)
+        return (*grads, None, None)
 
 
 def flash_attention_relpos(q: torch.Tensor, k: torch.Tensor,

@@ -19,7 +19,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
      loss atol 1e-5 and gradient atol 2e-6 at unit g; the decomposed
      rel-pos flash attention at the ViT-B global block [12,4096,64]
      (max abs err within 1e-5 of max |plain| in fp32, 3e-2 in bf16) and
-     at the tests' [2,256,32] fp32;
+     at the tests' [2,256,32] fp32; its training forward's lse (1e-5 of
+     max |plain|, out bit-equal to the inference call's) and the two
+     backward kernels' five gradients at the same shapes (1e-5 of max
+     |plain| in fp32, 1e-2 in bf16);
   4. the workloads through their CLI entry points, each with the launch
      counts set to 0 just before it and read just after:
      a. pseudo-labels (workloads/create_pseudo_labels.main) on a
@@ -47,12 +50,26 @@ Phases, in order; any failure raises and the exit code is non-zero:
         then the ViT-B embedding with the flash lane against the plain
         lane on the card (rel max err <= 1e-4), and a small SAM on the
         card against the CPU;
+     d. the SAM ViT-B encoder fine-tune step (benchmarks/
+        sam_train_bench.py's step): `Sam(SamConfig(global_attn_flash=
+        True), dtype=torch.bfloat16)` loaded by name from a seeded
+        official-named .pth, preprocess + encode_image on one 1024^2
+        uint8 frame, loss mean(feats^2), loss.backward(), 3 steps;
+        flash_fwd, flash_bwd_dq and flash_bwd_dkv launched 4 times each
+        per step, finite loss, a finite non-zero gradient on every encoder
+        parameter and none on the prompt encoder or decoder; then the
+        flash lane against the plain lane (global_attn_flash=False) on the
+        same weights: fp32 with TF32 off, per-parameter gradient relative
+        L2 <= 1e-4 and loss <= 1e-5 relative; bf16, loss <= 1e-3 relative
+        and sum |grad| within 5 %;
   5. timing with CUDA events: the pseudo-label program per bs64 batch,
      the train step at bs6@512^2 (device-resident batch, loader
      excluded) and the ABL loss's share of it, SAM's set_image and
-     predict and the global blocks' share of set_image, and each kernel
-     against its plain version and, where one PyTorch call computes the
-     same function, that call, at the path's shapes, beside its bound.
+     predict and the global blocks' share of set_image, the SAM fine-tune
+     step for both lanes with the global blocks' share and the device's
+     busy share, and each kernel against its plain version and, where one
+     PyTorch call computes the same function, that call, at the path's
+     shapes, beside its bound.
 The line before the last holds the kernels' JSON record, the one before
 it the card's name and power limit, and the last line
 {"ok": true, "device": {...}}.
@@ -90,13 +107,28 @@ KERNELS = {
                 "cartseg_tpu/ops/pallas/lsr.py:61"),
     "flash_fwd": ("cartseg_tpu_torch/ops/cuda/csrc/flash_relpos.cu",
                   "cartseg_tpu/ops/pallas/flash_attention.py:88"),
+    "flash_bwd_dq": ("cartseg_tpu_torch/ops/cuda/csrc/flash_relpos_bwd.cu",
+                     "cartseg_tpu/ops/pallas/flash_attention.py:179"),
+    "flash_bwd_dkv": ("cartseg_tpu_torch/ops/cuda/csrc/flash_relpos_bwd.cu",
+                      "cartseg_tpu/ops/pallas/flash_attention.py:232"),
 }
 PSEUDO_KERNELS = ("cc", "reach", "median")
 TRAIN_KERNELS = ("edt", "lsr_fwd", "lsr_bwd")
 SAM_KERNELS = ("flash_fwd",)
+SAM_TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+BWD_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
+SAM_TRAIN_STEPS = 3
 LSR_TOL = {"lsr_fwd": 1e-5, "lsr_bwd": 2e-6}
 # flash kernel vs plain: max abs error over the plain output's max |value|
 FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+# backward kernels vs plain, the same measure: in bf16 both sides sum in
+# fp32 from the same inputs and round once to bf16, so they differ by at
+# most one bf16 step (2^-7 = 7.8e-3 of a value)
+FLASH_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# (bnh, g, head_dim, type) of the flash kernels' checks against their
+# plain versions: the ViT-B global block in fp32 and bf16, the tests' size
+FLASH_CASES = ((12, 64, 64, torch.float32), (12, 64, 64, torch.bfloat16),
+               (2, 16, 32, torch.float32))
 SAM_FRAMES = ((1024, 1024),) * 3 + ((512, 512),)   # create_testset, hard
 SAM_GLOBAL_BLOCKS = 4
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s; dense FLOP/s
@@ -149,6 +181,22 @@ def flash_bound(q: torch.Tensor, rel_h: torch.Tensor) -> tuple:
     t_ops = 4.0 * bnh * S * S * hd / PEAK_FLOPS[q.dtype] * 1e3
     t_bytes, _ = bytes_bound(4 * q.numel() * q.element_size()
                              + 2 * nbytes(rel_h))
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def bwd_bound(q: torch.Tensor, rel_h: torch.Tensor, kernel: str) -> tuple:
+    """The larger of the products' FLOPs (2*bnh*S^2*hd each: 3 for dq,
+    q k^T, dO v^T, dS K; 4 for dkv, q k^T, dO v^T, P^T dO, dS^T Q) at the
+    peak for q's type and the kernel's bytes at the HBM rate: q, k, v, dO,
+    rel_h, rel_w and the fp32 lse and D read once; dq, drel_h, drel_w or
+    dk, dv written once."""
+    bnh, S, hd = q.shape
+    dq = kernel == "flash_bwd_dq"
+    t_ops = ((3 if dq else 4) * 2.0 * bnh * S * S * hd
+             / PEAK_FLOPS[q.dtype] * 1e3)
+    qb, rb = nbytes(q), nbytes(rel_h)
+    written = qb + 2 * rb if dq else 2 * qb
+    t_bytes, _ = bytes_bound(4 * qb + 2 * rb + 2 * bnh * S * 4 + written)
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -706,9 +754,7 @@ def phase_compare_flash(dev) -> float:
         flash_relpos_fwd, flash_relpos_fwd_plain)
 
     errs = {}
-    for bnh, g, hd, dt in ((12, 64, 64, torch.float32),
-                           (12, 64, 64, torch.bfloat16),
-                           (2, 16, 32, torch.float32)):
+    for bnh, g, hd, dt in FLASH_CASES:
         ts = flash_inputs(bnh, g, hd, dt, dev)
         got = flash_relpos_fwd(*ts, hd ** -0.5, g)
         torch.cuda.synchronize()
@@ -722,14 +768,72 @@ def phase_compare_flash(dev) -> float:
         log(f"  flash_fwd [{bnh},{g * g},{hd}] {dt}: max abs err {err:.3e}"
             f" = {rel:.3e} of max |plain| (tolerance {FLASH_TOL[dt]})")
         errs[(bnh, g, hd, dt)] = err
-    return errs[(12, 64, 64, torch.float32)]
+    return errs[FLASH_CASES[0]]
 
 
-def sam_checkpoint(path: Path, cfg) -> None:
+def phase_compare_flash_bwd(dev) -> dict:
+    """The training forward's lse against the plain logsumexp (its out
+    bit-equal to the inference call's), then flash_bwd_dq and
+    flash_bwd_dkv against flash_relpos_bwd_plain on the same inputs (the
+    forward kernel's out and lse, a seeded dO): the ViT-B global block
+    [12,4096,64] in fp32 and bf16 and the tests' [2,256,32] fp32, each of
+    the five gradients as max abs error over the plain one's max |value|.
+    Returns each kernel's max abs error per shape."""
+    from cartseg_tpu_torch.ops.cuda.flash_attention import (
+        flash_bwd_dkv, flash_bwd_dq, flash_relpos_bwd_plain,
+        flash_relpos_fwd, flash_relpos_fwd_lse_plain, row_delta)
+
+    errs = {}
+    for bnh, g, hd, dt in FLASH_CASES:
+        ts = flash_inputs(bnh, g, hd, dt, dev)
+        scale = hd ** -0.5
+        gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
+        do = torch.randn((bnh, g * g, hd), generator=gen).to(dt).to(dev)
+        out, lse = flash_relpos_fwd(*ts, scale, g, with_lse=True)
+        same = torch.equal(out, flash_relpos_fwd(*ts, scale, g))
+        _, lse_plain = flash_relpos_fwd_lse_plain(*ts, scale, g)
+        lrel = float((lse - lse_plain).abs().max() / lse_plain.abs().max())
+        if not same or not lrel <= 1e-5:
+            raise AssertionError(f"training forward [{bnh},{g * g},{hd}] {dt}"
+                                 f": out equal to inference {same}, lse rel "
+                                 f"err {lrel}")
+        delta = row_delta(out, do)
+        dq, drh, drw = flash_bwd_dq(*ts, do, lse, delta, scale, g)
+        dk, dv = flash_bwd_dkv(*ts, do, lse, delta, scale, g)
+        torch.cuda.synchronize()
+        want = flash_relpos_bwd_plain(*ts, out, lse, do, scale, g)
+        names = ("dq", "dk", "dv", "drel_h", "drel_w")
+        per = {}
+        for name, a, b in zip(names, (dq, dk, dv, drh, drw), want):
+            err = float((a.float() - b.float()).abs().max())
+            rel = err / float(b.float().abs().max())
+            if a.dtype != dt or not rel <= FLASH_BWD_TOL[dt]:
+                raise AssertionError(
+                    f"flash backward {name} [{bnh},{g * g},{hd}] {dt}: max "
+                    f"abs err {err} = {rel} of max |plain| (tolerance "
+                    f"{FLASH_BWD_TOL[dt]})")
+            per[name] = err
+            log(f"  flash backward {name} [{bnh},{g * g},{hd}] {dt}: max abs "
+                f"err {err:.3e} = {rel:.3e} of max |plain| (tolerance "
+                f"{FLASH_BWD_TOL[dt]})")
+        log(f"  training forward [{bnh},{g * g},{hd}] {dt}: lse rel err "
+            f"{lrel:.3e}, out == the inference call's, bit for bit")
+        errs[(bnh, g, hd, dt)] = {
+            "flash_bwd_dq": max(per["dq"], per["drel_h"], per["drel_w"]),
+            "flash_bwd_dkv": max(per["dk"], per["dv"])}
+    return errs
+
+
+def sam_checkpoint(path: Path, cfg, norm_noise: bool = False) -> None:
     """A seeded random init of `cfg` in the official naming (torch's
     default init, rel-pos tables 0.3*N(0,1), pos_embed 0.1*N(0,1)) with
-    the mask-prompt path's keys added, saved as a .pth."""
-    from cartseg_tpu_torch.models.sam import MASK_DOWNSCALING_PREFIX, Sam
+    the mask-prompt path's keys added, saved as a .pth. `norm_noise`
+    also draws the LayerNorms' weights as 1 + 0.1*N(0,1) and biases as
+    0.02*N(0,1): after the neck's last LayerNorm at weight 1 and bias 0,
+    mean(feats^2) is var/(var+eps), about 1 whatever the input, and its
+    gradient is rounding noise."""
+    from cartseg_tpu_torch.models.sam import (MASK_DOWNSCALING_PREFIX,
+                                              LayerNorm2d, Sam)
 
     torch.manual_seed(SEED)
     model = Sam(cfg)
@@ -739,6 +843,11 @@ def sam_checkpoint(path: Path, cfg) -> None:
                 prm.normal_(0.0, 0.3)
             elif name.endswith("pos_embed"):
                 prm.normal_(0.0, 0.1)
+        for m in model.modules():
+            if norm_noise and isinstance(m, (torch.nn.LayerNorm,
+                                              LayerNorm2d)):
+                m.weight.normal_(1.0, 0.1)
+                m.bias.normal_(0.0, 0.02)
     sd = model.state_dict()
     mic, pd = cfg.mask_in_chans, cfg.prompt_dim
     for i, shape in ((0, (mic // 4, 1, 2, 2)), (1, (mic // 4,)),
@@ -896,6 +1005,116 @@ def phase_sam_reference(tmp: Path, pred, frames, dev) -> None:
         f"logits {merr:.2e}, iou {ierr:.2e}")
 
 
+def sam_train_model(ckpt: Path, flash: bool, dtype, dev):
+    """ViT-B `Sam(cfg, dtype)` with the official-named checkpoint loaded
+    by name (strict), on `dev`."""
+    from cartseg_tpu_torch.models.sam import (Sam, SamConfig,
+                                              strip_mask_downscaling)
+
+    sd = torch.load(ckpt, map_location="cpu", weights_only=True)
+    model = Sam(SamConfig(global_attn_flash=flash), dtype=dtype)
+    model.load_state_dict(strip_mask_downscaling(sd))
+    return model.to(dev)
+
+
+def sam_step(model, x: torch.Tensor) -> torch.Tensor:
+    """One fine-tune step (benchmarks/sam_train_bench.py:46-63): the loss
+    mean(feats^2) of encode_image(preprocess(x)) and its backward into
+    every encoder parameter's .grad."""
+    model.zero_grad(set_to_none=True)
+    feats = model.encode_image(model.preprocess(x))
+    loss = (feats.float() ** 2).mean()
+    loss.backward()
+    return loss.detach()
+
+
+def encoder_grads(model) -> dict:
+    return {k: p.grad for k, p in model.named_parameters()
+            if k.startswith("image_encoder.")}
+
+
+def phase_sam_train(tmp: Path, dev) -> dict:
+    """The ViT-B encoder fine-tune step, bf16 compute, flash lane, 3 steps
+    on one 1024^2 frame; then the flash lane against the plain lane on
+    the same weights in fp32 (TF32 off) and in bf16."""
+    from cartseg_tpu_torch.device import set_fp32_policy
+    from cartseg_tpu_torch.models.sam import SamConfig
+    from cartseg_tpu_torch.ops.cuda import build
+    from cartseg_tpu_torch.utils.synthetic import frame
+
+    set_fp32_policy()
+    cfg = SamConfig()
+    ckpt = tmp / "sam_vit_b_train_seed0.pth"
+    sam_checkpoint(ckpt, cfg, norm_noise=True)
+    img = frame(np.random.default_rng(SEED + 2), (cfg.img_size,) * 2)
+    x = torch.from_numpy(img[None]).to(dev)
+    t0 = time.perf_counter()
+    model = sam_train_model(ckpt, True, torch.bfloat16, dev)
+    build.reset_launch_counts()
+    losses, per_step = [], []
+    for _ in range(SAM_TRAIN_STEPS):
+        before = dict(build.LAUNCHES)
+        losses.append(float(sam_step(model, x)))
+        per_step.append({k: build.LAUNCHES[k] - before[k]
+                         for k in SAM_TRAIN_KERNELS})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    want = {k: SAM_GLOBAL_BLOCKS for k in SAM_TRAIN_KERNELS}
+    if any(p != want for p in per_step):
+        raise AssertionError(f"launches per step {per_step}, want {want}")
+    if not all(np.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite loss {losses}")
+    grads = encoder_grads(model)
+    bad = [k for k, g in grads.items() if g is None
+           or not bool(torch.isfinite(g).all()) or not bool(g.any())]
+    others = [k for k, p in model.named_parameters()
+              if not k.startswith("image_encoder.") and p.grad is not None]
+    if bad or others:
+        raise AssertionError(f"encoder grads missing, non-finite or zero: "
+                             f"{bad}; grads outside the encoder: {others}")
+    log(f"  fine-tune step (ViT-B 1024^2, bf16 compute, fp32 params, flash "
+        f"lane): {SAM_TRAIN_STEPS} steps in {wall:.1f} s wall (load and "
+        f"first-call warm-up included); losses {losses}; launches per step "
+        f"{per_step[0]} (total {launches}); all {len(grads)} encoder "
+        f"parameters have finite non-zero gradients, the prompt encoder "
+        f"and decoder none")
+
+    # the same weights through the plain lane (global_attn_flash=False)
+    lanes = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for flash in (True, False):
+            m = model if (flash and dt == torch.bfloat16) else \
+                sam_train_model(ckpt, flash, dt, dev)
+            loss = float(sam_step(m, x))
+            lanes[(dt, flash)] = (loss, {k: g.float().clone() for k, g in
+                                         encoder_grads(m).items()})
+    (lf, gf), (lp, gp) = lanes[(torch.float32, True)], lanes[
+        (torch.float32, False)]
+    rel = {k: float((gf[k] - gp[k]).norm() / gp[k].norm()) for k in gp}
+    worst = max(rel, key=rel.get)
+    lrel = abs(lf - lp) / abs(lp)
+    if not rel[worst] <= 1e-4 or not lrel <= 1e-5:
+        raise AssertionError(f"fp32 flash vs plain lane: loss {lf} vs {lp}, "
+                             f"worst gradient rel L2 {rel[worst]} ({worst})")
+    log(f"  fp32 (TF32 off) flash lane vs plain lane: loss {lf:.7f} vs "
+        f"{lp:.7f} (rel {lrel:.2e}, limit 1e-5); worst per-parameter "
+        f"gradient rel L2 {rel[worst]:.3e} ({worst}; limit 1e-4), median "
+        f"{float(np.median(list(rel.values()))):.3e}")
+    (bf, gbf), (bp, gbp) = lanes[(torch.bfloat16, True)], lanes[
+        (torch.bfloat16, False)]
+    sf = sum(float(g.abs().sum()) for g in gbf.values())
+    sp = sum(float(g.abs().sum()) for g in gbp.values())
+    brel = abs(bf - bp) / abs(bp)
+    if not brel <= 1e-3 or not abs(sf - sp) <= 0.05 * sp:
+        raise AssertionError(f"bf16 flash vs plain lane: loss {bf} vs {bp}, "
+                             f"sum |grad| {sf} vs {sp}")
+    log(f"  bf16 flash lane vs plain lane: loss {bf:.7f} vs {bp:.7f} (rel "
+        f"{brel:.2e}, limit 1e-3); sum |grad| {sf:.6f} vs {sp:.6f} "
+        f"({abs(sf - sp) / sp:.4f} apart, limit 0.05)")
+    return {"launches": launches, "model": model, "x": x, "ckpt": ckpt}
+
+
 def top_device_ops(fn, n_top: int = 8) -> tuple:
     """The device kernels and copies that take most time in one call of
     fn, as (name, ms summed over their launches), and their total ms."""
@@ -1015,6 +1234,128 @@ def phase_sam_timing(pred, frames, dev, card: str) -> dict:
             "flash": out}
 
 
+def phase_sam_train_timing(train: dict, dev, card: str) -> dict:
+    """The fine-tune step for the flash and the plain lane (bf16), the
+    global blocks' share of it, the device's busy share, and
+    flash_bwd_dq / flash_bwd_dkv against their plain versions and the
+    library composite at the inputs the step gives them, bf16 and fp32."""
+    import torch.nn.functional as F
+
+    from cartseg_tpu_torch.ops import flash_attention as fa
+    from cartseg_tpu_torch.ops.cuda import build
+    from cartseg_tpu_torch.ops.cuda.flash_attention import (
+        flash_bwd_dkv, flash_bwd_dkv_plain, flash_bwd_dq, flash_bwd_dq_plain,
+        flash_relpos_bwd_plain, flash_relpos_fwd, row_delta)
+
+    model, x = train["model"], train["x"]
+    plain = sam_train_model(train["ckpt"], False, torch.bfloat16, dev)
+    for m in (model, plain):
+        cuda_ms(lambda: sam_step(m, x), 2)        # warm-up
+    f1 = cuda_ms(lambda: sam_step(model, x), 5)
+    p1 = cuda_ms(lambda: sam_step(plain, x), 5)
+    p2 = cuda_ms(lambda: sam_step(plain, x), 5)
+    f2 = cuda_ms(lambda: sam_step(model, x), 5)
+    step_ms, plain_ms = (f1 + f2) / 2, (p1 + p2) / 2
+    busy = _busy_share(lambda: sam_step(model, x), 3)
+    rows, total = top_device_ops(lambda: sam_step(model, x))
+    log(f"  fine-tune step device time by kernel (profiler, one step, "
+        f"{total:.3f} ms of kernels and copies): " + "; ".join(
+            f"{name[:70]} {ms:.3f}" for name, ms in rows))
+
+    # the global blocks' inputs, and the flash call's arguments and output
+    # gradient in the first of them
+    blocks = model.image_encoder.blocks
+    inputs, caught = {}, {}
+    hooks = [blk.register_forward_pre_hook(
+        lambda mod, args, i=i: inputs.__setitem__(i, args[0].detach()))
+        for i, blk in enumerate(blocks) if blk.window_size == 0]
+    real = fa.flash_attention_relpos
+
+    def capture(*a, **kw):
+        out = real(*a, **kw)
+        if "args" not in caught:
+            caught["args"] = ([t.detach() for t in a], kw)
+            out.register_hook(lambda gr: caught.setdefault("do", gr))
+        return out
+
+    fa.flash_attention_relpos = capture
+    try:
+        sam_step(model, x)
+    finally:
+        fa.flash_attention_relpos = real
+        for h in hooks:
+            h.remove()
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    cots = {i: (1e-3 * torch.randn(t.shape, generator=gen)).to(t.dtype).to(
+        dev) for i, t in inputs.items()}
+
+    def global_blocks():
+        for i, t in inputs.items():
+            blocks[i](t.requires_grad_(True)).backward(cots[i])
+
+    glob_ms = cuda_ms(global_blocks, 5)
+    log(f"  fine-tune step ViT-B 1024^2 bf16 batch 1: flash lane "
+        f"{f1:.3f}/{f2:.3f} ms, plain lane (global_attn_flash=False) "
+        f"{p1:.3f}/{p2:.3f} ms; the {len(inputs)} global blocks' forward + "
+        f"backward {glob_ms:.3f} ms, share {glob_ms / step_ms:.4f}; device "
+        f"busy share {busy:.4f} [{card}]")
+
+    (q, k, v, rh, rw), kw = caught["args"]
+    scale, g = kw["scale"], kw["grid_size"]
+    bnh, S, hd = q.shape
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        ts = [t.to(dt).contiguous() for t in (q, k, v, rh, rw)]
+        do = caught["do"].to(dt).contiguous()
+        o, lse = flash_relpos_fwd(*ts, scale, g, with_lse=True)
+        delta = row_delta(o, do)
+        args = (*ts, do, lse, delta, scale, g)
+        # library: autograd of SDPA with the (bnh,S,S) bias materialised
+        # and requiring grad, then dbias summed into drel_h and drel_w
+        lq, lk, lv = (t.detach().clone().requires_grad_(True)
+                      for t in ts[:3])
+        bias = (ts[3][:, :, :, None] + ts[4][:, :, None, :]).reshape(
+            bnh, S, S).requires_grad_(True)
+        lo = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=bias,
+                                            scale=scale)
+
+        def lib():
+            gq, gk, gv, gb = torch.autograd.grad(lo, (lq, lk, lv, bias), do,
+                                                 retain_graph=True)
+            gb = gb.reshape(bnh, S, g, g)
+            return gq, gk, gv, gb.sum(-1), gb.sum(-2)
+
+        ref = flash_relpos_bwd_plain(*ts, o, lse, do, scale, g)
+        lerr = max(float((a.float() - b.float()).abs().max())
+                   for a, b in zip(lib(), ref))
+        cases = {"flash_bwd_dq": (lambda: flash_bwd_dq(*args),
+                                  lambda: flash_bwd_dq_plain(*args)),
+                 "flash_bwd_dkv": (lambda: flash_bwd_dkv(*args),
+                                   lambda: flash_bwd_dkv_plain(*args))}
+        l1 = cuda_ms(lib, 10)
+        res = {}
+        for name, (kern, pln) in cases.items():
+            pa = cuda_ms(pln, 3)
+            ka = cuda_ms(kern, 10)
+            kb = cuda_ms(kern, 10)
+            pb = cuda_ms(pln, 3)
+            b, by = bwd_bound(ts[0], ts[3], name)
+            res[name] = ((ka + kb) / 2, (pa + pb) / 2, l1, b, by)
+            log(f"  {name} [{bnh},{S},{hd}] {dt} (the step's inputs): kernel "
+                f"{ka:.4f}/{kb:.4f} ms, plain {pa:.4f}/{pb:.4f} ms; bound "
+                f"{b:.5f} ms ({by}), kernel at {b / ((ka + kb) / 2):.3f} of "
+                f"it [{card}]")
+        log(f"  library for both: autograd of F.scaled_dot_product_attention"
+            f" with the (bnh,S,S) bias materialised and requiring grad, plus "
+            f"the two sums of dbias into drel_h and drel_w: {l1:.4f} ms "
+            f"(max abs diff to plain {lerr:.2e}); kernels dq + dkv "
+            f"{res['flash_bwd_dq'][0] + res['flash_bwd_dkv'][0]:.4f} ms "
+            f"[{card}]")
+        out[dt] = res
+    build.reset_launch_counts()
+    return {"step_ms": step_ms, "plain_ms": plain_ms, "kernels": out}
+
+
 def main() -> int:
     from cartseg_tpu_torch.device import require_cuda
 
@@ -1048,6 +1389,8 @@ def main() -> int:
         log("phase 3: kernels against their plain versions")
         errs = phase_compare(frames, dev)
         errs["flash_fwd"] = phase_compare_flash(dev)
+        bwd_errs = phase_compare_flash_bwd(dev)
+        errs.update(bwd_errs[FLASH_CASES[1]])
 
         log("phase 4a: pseudo-label workload")
         launches, ckpts = phase_workload(tmp, dev)
@@ -1061,10 +1404,14 @@ def main() -> int:
         sam_launches, pred, sam_frames = phase_sam(tmp, dev)
         phase_sam_reference(tmp, pred, sam_frames, dev)
 
+        log("phase 4d: SAM ViT-B encoder fine-tune step")
+        sam_train = phase_sam_train(tmp, dev)
+
         log("phase 5: timing")
         timing = phase_timing(ckpts, frames, dev, card)
         train_timing = phase_train_timing(dev, card, hist)
         sam_timing = phase_sam_timing(pred, sam_frames, dev, card)
+        sam_train_timing = phase_sam_train_timing(sam_train, dev, card)
 
     launches.update({k: train_launches[k] for k in TRAIN_KERNELS})
     launches.update({k: sam_launches[k] for k in SAM_KERNELS})
@@ -1075,6 +1422,11 @@ def main() -> int:
     times["flash_fwd"] = (f_ms, f_plain)
     bounds["flash_fwd"] = (f_b, f_by)
     library["flash_fwd"] = f_lib
+    # the backward kernels' rows: the fine-tune step's bf16 inputs
+    for k in BWD_KERNELS:
+        launches[k] = sam_train["launches"][k]
+        ms, plain, lib, b, by = sam_train_timing["kernels"][torch.bfloat16][k]
+        times[k], bounds[k], library[k] = (ms, plain), (b, by), lib
     record = {"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], "max_abs_err": errs[k],

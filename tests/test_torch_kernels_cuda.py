@@ -16,7 +16,11 @@ kernels use expf/logf, which differ from torch's by ulps: loss atol
 products and its online softmax in another order than the plain
 version's materialised softmax: max abs error within 1e-5 of the plain
 output's max |value| in float32, 3e-2 in bfloat16 (one bf16 rounding of
-the output, the JAX flash test's own bound).
+the output, the JAX flash test's own bound). The two backward kernels against
+`flash_relpos_bwd_plain`, each gradient's max abs error over the plain
+one's max |value|: 1e-5 in float32 (as the forward), 1e-2 in bfloat16
+(both sides sum in fp32 from the same bf16 inputs and round once to bf16,
+so they differ by at most one bf16 step, 2^-7 = 7.8e-3 of a value).
 """
 
 import numpy as np
@@ -28,7 +32,8 @@ from cartseg_tpu_torch.ops.cuda.cc import (cc_batch, cc_batch_plain,
                                            reach_batch, reach_batch_plain)
 from cartseg_tpu_torch.ops.cuda.edt import edt_batch_jfa, edt_batch_plain
 from cartseg_tpu_torch.ops.cuda.flash_attention import (
-    flash_relpos_fwd, flash_relpos_fwd_plain)
+    MAX_GRID, flash_relpos_bwd, flash_relpos_bwd_plain, flash_relpos_fwd,
+    flash_relpos_fwd_lse_plain, flash_relpos_fwd_plain)
 from cartseg_tpu_torch.ops.cuda.lsr import (lsr_bwd, lsr_bwd_plain, lsr_fwd,
                                             lsr_fwd_plain)
 from cartseg_tpu_torch.ops.cuda.median import median_rows, median_rows_plain
@@ -201,9 +206,12 @@ def test_launch_counters_count_kernel_launches_only(cuda_device):
     lsr_fwd(x, lab, 0.2, 255)
     lsr_bwd(x, lab, torch.ones(3, device=cuda_device), 0.2, 255)
     fa = [t.to(cuda_device) for t in _flash_inputs(1, 4, 32, torch.float32)]
-    flash_relpos_fwd(*fa, 0.125, 4)
+    out, lse = flash_relpos_fwd(*fa, 0.125, 4, with_lse=True)
+    flash_relpos_bwd_plain(*fa, out, lse, out, 0.125, 4)  # plain: no count
+    flash_relpos_bwd(*fa, out, lse, out, 0.125, 4)
     assert build.LAUNCHES == {"cc": 1, "reach": 1, "median": 1, "edt": 1,
-                              "lsr_fwd": 1, "lsr_bwd": 1, "flash_fwd": 1}
+                              "lsr_fwd": 1, "lsr_bwd": 1, "flash_fwd": 1,
+                              "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
     build.reset_launch_counts()
 
 
@@ -249,15 +257,108 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="grid_size"):
         flash_relpos_fwd(*ts, 0.1, 7)
 
+    # the backward: the same checks, and lse / D fp32 [bnh,S], dO like q
+    out, lse = flash_relpos_fwd(*ts, 0.1, 8, with_lse=True)
+    with pytest.raises(ValueError, match="lse and D"):
+        flash_relpos_bwd(*ts, out, lse[:, :-1], out, 0.1, 8)
+    with pytest.raises(ValueError, match="lse and D"):
+        flash_relpos_bwd(*ts, out, lse.double(), out, 0.1, 8)
+    with pytest.raises(TypeError, match="one type"):
+        flash_relpos_bwd(*ts, out, lse, out.to(torch.bfloat16), 0.1, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_relpos_bwd(*ts, out, lse, q, 0.1, 8)
+    with pytest.raises(ValueError, match="must match q"):
+        flash_relpos_bwd(*ts, out, lse, out[:, :, :16], 0.1, 8)
+    with pytest.raises(ValueError, match="tensors on"):
+        flash_relpos_bwd(*ts, out, lse.cpu(), out, 0.1, 8)
+    g = MAX_GRID + 1
+    big = [t.to(cuda_device) for t in _flash_inputs(1, g, 32, torch.float32)]
+    with pytest.raises(ValueError, match="grid_size"):
+        flash_relpos_fwd(*big, 0.1, g)
+    with pytest.raises(ValueError, match="grid_size"):
+        flash_relpos_bwd(*big, big[0], big[0][..., 0].contiguous(), big[0],
+                         0.1, g)
 
-def test_flash_backward_on_the_card_raises(cuda_device):
-    from cartseg_tpu_torch.ops.flash_attention import flash_attention_relpos
 
-    ts = [t.to(cuda_device) for t in _flash_inputs(2, 16, 32, torch.float32)]
-    q = ts[0].requires_grad_(True)
-    out = flash_attention_relpos(q, *ts[1:], scale=0.2, grid_size=16)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 6"):
-        out.sum().backward()
+def _flash_grads(bnh, g, hd, dtype, dev):
+    """Inputs, the forward kernel's output and lse, a seeded dO, and the
+    backward kernels' and the plain version's five gradients."""
+    ts = [t.to(dev) for t in _flash_inputs(bnh, g, hd, dtype)]
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    do = torch.randn((bnh, g * g, hd), generator=gen).to(dtype).to(dev)
+    out, lse = flash_relpos_fwd(*ts, hd ** -0.5, g, with_lse=True)
+    got = flash_relpos_bwd(*ts, out, lse, do, hd ** -0.5, g)
+    torch.cuda.synchronize()
+    want = flash_relpos_bwd_plain(*ts, out, lse, do, hd ** -0.5, g)
+    return ts, (out, lse, do), got, want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bnh,g,hd", [(3, 16, 32), (2, 64, 64),
+                                      (1, 64, 32), (2, 10, 64),
+                                      (1, 23, 32)])
+def test_flash_bwd_kernels_within_tolerance_of_plain(cuda_device, bnh, g, hd,
+                                                     dtype):
+    """flash_bwd_dq and flash_bwd_dkv against flash_relpos_bwd_plain at
+    g 16 and 64 and at grids whose S is not a multiple of the 64-row
+    tiles; the gradients keep their inputs' types and are the same bits
+    from run to run (no atomics)."""
+    ts, (out, lse, do), got, want = _flash_grads(bnh, g, hd, dtype,
+                                                 cuda_device)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for name, a, b, like in zip(("dq", "dk", "dv", "drel_h", "drel_w"), got,
+                                want, (ts[0], ts[1], ts[2], ts[3], ts[4])):
+        assert a.dtype == dtype and a.shape == like.shape, name
+        rel = float((a.float() - b.float()).abs().max()
+                    / b.float().abs().max())
+        assert rel <= tol, (name, rel)
+    again = flash_relpos_bwd(*ts, out, lse, do, hd ** -0.5, g)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fwd_writes_the_lse_only_when_asked(cuda_device, dtype):
+    ts = [t.to(cuda_device) for t in _flash_inputs(2, 23, 64, dtype)]
+    plain = flash_relpos_fwd(*ts, 0.125, 23)
+    out, lse = flash_relpos_fwd(*ts, 0.125, 23, with_lse=True)
+    _, want = flash_relpos_fwd_lse_plain(*ts, 0.125, 23)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain)
+    assert lse.dtype == torch.float32 and lse.shape == (2, 23 * 23)
+    assert float((lse - want).abs().max() / want.abs().max()) <= 1e-5
+
+
+def test_vit_attention_backward_on_the_card_runs_both_kernels(
+        cuda_device, monkeypatch):
+    """loss.backward() through ViTAttention's flash lane: one launch of
+    each kernel, no plain version, gradients as the plain lane's."""
+    from cartseg_tpu_torch.models.sam import ViTAttention
+    from cartseg_tpu_torch.ops.cuda import flash_attention as cfa
+
+    torch.manual_seed(0)
+    plain = ViTAttention(64, 2, 16, use_flash=False)
+    with torch.no_grad():
+        plain.rel_pos_h.normal_(0, 0.3)
+        plain.rel_pos_w.normal_(0, 0.3)
+    flash = ViTAttention(64, 2, 16, use_flash=True)
+    flash.load_state_dict(plain.state_dict())
+    x = torch.randn(1, 16, 16, 64, device=cuda_device)
+    grads = []
+    for m in (plain.to(cuda_device), flash.to(cuda_device)):
+        xi = x.clone().requires_grad_(True)
+        if m is flash:
+            for name in ("flash_relpos_fwd_plain", "flash_relpos_bwd_plain",
+                         "flash_bwd_dq_plain", "flash_bwd_dkv_plain"):
+                monkeypatch.setattr(cfa, name, None)
+            build.reset_launch_counts()
+        (m(xi) ** 2).sum().backward()
+        grads.append((xi.grad, m.rel_pos_h.grad, m.qkv.weight.grad))
+    assert build.LAUNCHES["flash_fwd"] == 1
+    assert build.LAUNCHES["flash_bwd_dq"] == build.LAUNCHES[
+        "flash_bwd_dkv"] == 1
+    for a, b in zip(grads[1], grads[0]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    build.reset_launch_counts()
 
 
 def test_sam_predictor_on_the_card_matches_the_cpu(cuda_device):

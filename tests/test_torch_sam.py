@@ -245,16 +245,16 @@ def test_bf16_softmax_lane_tracks_fp32():
     sd = tsam.strip_mask_downscaling(sam_official_state_dict(cfg, seed=2))
     enc = tsam.Sam(cfg)
     enc.load_state_dict(sd)
-    enc_b = tsam.Sam(dataclasses.replace(cfg, attn_softmax_fp32=False))
+    enc_b = tsam.Sam(dataclasses.replace(cfg, attn_softmax_fp32=False),
+                     dtype=torch.bfloat16)
     enc_b.load_state_dict(sd)
-    enc_b = enc_b.to(torch.bfloat16)
     x = torch.from_numpy(np.random.default_rng(6).standard_normal(
         (1, 256, 256, 3)).astype(np.float32))
     with torch.no_grad():
         ya = enc.encode_image(x)
-        yb = enc_b.encode_image(x.to(torch.bfloat16)).float()
-    rel = float((ya - yb).abs().max() / ya.abs().max())
-    assert yb.dtype == torch.float32 and rel < 0.08, rel
+        yb = enc_b.encode_image(x)
+    rel = float((ya - yb.float()).abs().max() / ya.abs().max())
+    assert yb.dtype == torch.bfloat16 and rel < 0.08, rel
 
 
 # ----------------------------------------------------------- predictor
