@@ -1,3 +1,4 @@
-"""Models: the efficientnet-b0 UNet in smp layout and the JAX bridge."""
+"""Models: the efficientnet-b0 and resnet34/18 UNets in smp layout, both
+BatchNorm lanes, and the JAX bridge."""
 
 from cartseg_tpu_torch.models.factory import build_model, param_groups  # noqa: F401

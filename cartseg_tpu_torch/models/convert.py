@@ -1,5 +1,6 @@
 """JAX variables -> the port's state dicts, without importing JAX: the
-UNet's (the inverse of cartseg_tpu/models/torch_import.py:249-343) and
+UNet's with an efficientnet-b0, resnet34 or resnet18 encoder (the
+inverse of cartseg_tpu/models/torch_import.py:249-343) and
 SAM's (`jax_sam_to_state_dict`, the inverse of convert_torch_sam).
 
 `variables_np` is the JAX package's {"params", "batch_stats"} tree with
@@ -63,9 +64,27 @@ def _effnet_key(mod, leaf: str) -> str:
     return f"encoder.blocks.{g}.{r}.{tname}.weight"
 
 
-def _torch_key(path: tuple) -> str:
+def _resnet_key(mod, leaf: str) -> str:
+    """encoder/conv1, encoder/bn1, encoder/layer{l}_{b}/<sub>
+    (resnet.py:24-68) -> torchvision names."""
+    if mod[0] == "conv1":
+        return "encoder.conv1.weight"
+    if mod[0] == "bn1":
+        return f"encoder.bn1.{_BN_LEAF[leaf]}"
+    layer, blk = mod[0].split("_")
+    tname = {"conv1": "conv1", "conv2": "conv2", "bn1": "bn1", "bn2": "bn2",
+             "downsample_conv": "downsample.0",
+             "downsample_bn": "downsample.1"}[mod[1]]
+    if mod[1] in ("bn1", "bn2", "downsample_bn"):
+        return f"encoder.{layer}.{blk}.{tname}.{_BN_LEAF[leaf]}"
+    return f"encoder.{layer}.{blk}.{tname}.weight"
+
+
+def _torch_key(path: tuple, encoder: str) -> str:
     mod, leaf = path[:-1], path[-1]
     if mod[0] == "encoder":
+        if encoder.startswith("resnet"):
+            return _resnet_key(mod[1:], leaf)
         return _effnet_key(mod[1:], leaf)
     if mod[0] == "decoder":
         i, sub = mod[1][len("block"):], mod[2]
@@ -82,18 +101,19 @@ def jax_variables_to_state_dict(variables_np: Mapping,
                                 encoder: str = "efficientnet-b0"
                                 ) -> Dict[str, torch.Tensor]:
     """JAX {"params","batch_stats"} numpy tree -> torch state dict for
-    build_model(encoder)."""
-    if encoder != "efficientnet-b0":
+    build_model(encoder): efficientnet-b0, resnet34 or resnet18."""
+    if encoder not in ("efficientnet-b0", "resnet34", "resnet18"):
         raise NotImplementedError(
             f"convert: encoder {encoder!r} is not ported yet (ROADMAP.md "
-            "Queue 1 item 2)")
+            "Queue 1 item 8)")
     leaves = {**_flatten(variables_np["params"]),
               **_flatten(variables_np.get("batch_stats", {}))}
     sd = {}
     for path, v in leaves.items():
         if path[-1] == "kernel" and v.ndim == 4:
             v = np.transpose(v, (3, 2, 0, 1))
-        sd[_torch_key(path)] = torch.from_numpy(np.array(v, np.float32))
+        sd[_torch_key(path, encoder)] = torch.from_numpy(
+            np.array(v, np.float32))
     return sd
 
 

@@ -6,8 +6,9 @@ the 5 smp feature stages at strides 2/4/8/16/32 with channels
 `efficientnet_b0` (conv_stem, bn1, blocks.{g}.{r}.conv_pw/conv_dw/
 se.conv_reduce/se.conv_expand/conv_pwl/bn1..bn3), which is what the
 reference checkpoints hold (src/train_with_pretrained.py:317-325), so a
-reference `.pth` loads with plain `load_state_dict`. BN is
-models/norm.py's `BatchNorm2d` (flax's running-variance update).
+reference `.pth` loads with plain `load_state_dict`. BN comes from
+models/norm.py's `batch_norm` factory in the caller's lane (flax's
+running-variance update in both).
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from cartseg_tpu_torch.models.norm import BatchNorm2d
+from cartseg_tpu_torch.models.norm import batch_norm
 
 # (expand_ratio, out_channels, num_repeats, stride, kernel_size)
 B0_BLOCKS = (
@@ -52,14 +53,15 @@ class SqueezeExcite(nn.Module):
 class DepthwiseSeparableConv(nn.Module):
     """The expand==1 MBConv (timm DepthwiseSeparableConv naming)."""
 
-    def __init__(self, cin: int, cout: int, stride: int, k: int):
+    def __init__(self, cin: int, cout: int, stride: int, k: int,
+                 bn_lane: str):
         super().__init__()
         self.conv_dw = nn.Conv2d(cin, cin, k, stride, k // 2, groups=cin,
                                  bias=False)
-        self.bn1 = BatchNorm2d(cin, eps=BN_EPS)
+        self.bn1 = batch_norm(cin, BN_EPS, bn_lane)
         self.se = SqueezeExcite(cin, cin)
         self.conv_pw = nn.Conv2d(cin, cout, 1, bias=False)
-        self.bn2 = BatchNorm2d(cout, eps=BN_EPS)
+        self.bn2 = batch_norm(cout, BN_EPS, bn_lane)
         self.has_skip = stride == 1 and cin == cout
 
     def forward(self, x):
@@ -72,17 +74,17 @@ class InvertedResidual(nn.Module):
     """The expand>1 MBConv (timm InvertedResidual naming)."""
 
     def __init__(self, cin: int, cout: int, expand: int, stride: int,
-                 k: int):
+                 k: int, bn_lane: str):
         super().__init__()
         mid = cin * expand
         self.conv_pw = nn.Conv2d(cin, mid, 1, bias=False)
-        self.bn1 = BatchNorm2d(mid, eps=BN_EPS)
+        self.bn1 = batch_norm(mid, BN_EPS, bn_lane)
         self.conv_dw = nn.Conv2d(mid, mid, k, stride, k // 2, groups=mid,
                                  bias=False)
-        self.bn2 = BatchNorm2d(mid, eps=BN_EPS)
+        self.bn2 = batch_norm(mid, BN_EPS, bn_lane)
         self.se = SqueezeExcite(mid, cin)
         self.conv_pwl = nn.Conv2d(mid, cout, 1, bias=False)
-        self.bn3 = BatchNorm2d(cout, eps=BN_EPS)
+        self.bn3 = batch_norm(cout, BN_EPS, bn_lane)
         self.has_skip = stride == 1 and cin == cout
 
     def forward(self, x):
@@ -95,10 +97,10 @@ class InvertedResidual(nn.Module):
 class EfficientNetEncoder(nn.Module):
     out_channels = (32, 24, 40, 112, 320)
 
-    def __init__(self):
+    def __init__(self, bn_lane: str = "torch"):
         super().__init__()
         self.conv_stem = nn.Conv2d(3, 32, 3, 2, 1, bias=False)
-        self.bn1 = BatchNorm2d(32, eps=BN_EPS)
+        self.bn1 = batch_norm(32, BN_EPS, bn_lane)
         groups = []
         cin = 32
         for exp, cout, reps, stride, k in B0_BLOCKS:
@@ -106,9 +108,11 @@ class EfficientNetEncoder(nn.Module):
             for r in range(reps):
                 s = stride if r == 0 else 1
                 if exp == 1:
-                    blocks.append(DepthwiseSeparableConv(cin, cout, s, k))
+                    blocks.append(DepthwiseSeparableConv(cin, cout, s, k,
+                                                         bn_lane))
                 else:
-                    blocks.append(InvertedResidual(cin, cout, exp, s, k))
+                    blocks.append(InvertedResidual(cin, cout, exp, s, k,
+                                                   bn_lane))
                 cin = cout
             groups.append(nn.Sequential(*blocks))
         self.blocks = nn.ModuleList(groups)

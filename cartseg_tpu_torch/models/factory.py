@@ -8,20 +8,28 @@ from typing import Dict
 import torch.nn as nn
 
 from cartseg_tpu_torch.models.efficientnet import EfficientNetEncoder
+from cartseg_tpu_torch.models.resnet import ResNetEncoder
 from cartseg_tpu_torch.models.unet import UNet
 
+_RESNET_STAGES = {"resnet34": (3, 4, 6, 3), "resnet18": (2, 2, 2, 2)}
 
-def build_model(encoder_name: str = "efficientnet-b0",
-                classes: int = 1) -> nn.Module:
-    """smp-layout UNet with the named encoder, in eval mode's layout
-    (the caller moves it to its device and dtype)."""
+
+def build_model(encoder_name: str = "efficientnet-b0", classes: int = 1,
+                bn_lane: str = "torch") -> nn.Module:
+    """smp-layout UNet with the named encoder (the caller moves it to its
+    device and dtype). bn_lane picks every BatchNorm's lane
+    (models/norm.py `batch_norm`): "torch" or "channel_sums"."""
     if encoder_name == "efficientnet-b0":
-        return UNet(EfficientNetEncoder(), classes=classes)
-    if encoder_name in ("resnet34", "resnet18", "classic"):
+        enc = EfficientNetEncoder(bn_lane)
+    elif encoder_name in _RESNET_STAGES:
+        enc = ResNetEncoder(_RESNET_STAGES[encoder_name], bn_lane)
+    elif encoder_name == "classic":
         raise NotImplementedError(
-            f"encoder {encoder_name!r} is not ported yet (ROADMAP.md "
-            "Queue 1 item 2: models); only efficientnet-b0 is")
-    raise ValueError(f"unknown encoder {encoder_name!r}")
+            "encoder 'classic' (models/classic_unet.py) is not ported yet "
+            "(ROADMAP.md Queue 1 item 8: other model families)")
+    else:
+        raise ValueError(f"unknown encoder {encoder_name!r}")
+    return UNet(enc, classes=classes, bn_lane=bn_lane)
 
 
 def param_groups(model: nn.Module) -> Dict[str, str]:

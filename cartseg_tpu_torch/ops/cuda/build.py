@@ -40,7 +40,7 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 LAUNCHES = {"cc": 0, "reach": 0, "median": 0, "edt": 0, "lsr_fwd": 0,
             "lsr_bwd": 0, "flash_fwd": 0, "flash_bwd_dq": 0,
-            "flash_bwd_dkv": 0}
+            "flash_bwd_dkv": 0, "channel_sums": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -68,6 +68,10 @@ _SIGNATURES = {
     # (q, k, v, rel_h, rel_w, dO, lse, D, dk, dv, bnh, S, g, hd, bf16,
     #  scale, stream)
     "cartseg_flash_relpos_bwd_dkv": (_P,) * 10 + (_I,) * 5 + (_F, _P),
+    # (a, b, partials, out, a_bf16, b_bf16, same, nhwc, N, C, HW, vec, P,
+    #  tc, R, stream)
+    "cartseg_channel_sums": (_P,) * 4 + (_I,) * 4 + (_L, _I, _L) + (_I,) * 4
+    + (_P,),
 }
 
 

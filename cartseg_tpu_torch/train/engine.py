@@ -3,7 +3,9 @@
 One train step: on-device augmentation, the model forward under
 autocast (bf16 compute, fp32 parameters), the loss in fp32 (for
 bce_dice_abl the EDT and LSR CUDA kernels on the card), backward,
-per-group AdamW and the BN running-stat update. Losses stay on the
+per-group AdamW and the BN running-stat update (BN in the lane the
+Trainer is built with: torch's fused kernel, or the channel-sums CUDA
+kernel, models/norm.py). Losses stay on the
 device and are fetched once per epoch; a non-finite loss gates the
 update on the device. Validation takes exact weighted means; the run
 ends with a threshold sweep on the best checkpoint and writes the
@@ -118,9 +120,12 @@ def synthetic_frame_hw(img_size) -> tuple:
 class Trainer:
     """Engine of the port's training workloads (cartseg_tpu_torch.workloads)."""
 
-    def __init__(self, cfg: TrainConfig):
+    def __init__(self, cfg: TrainConfig, bn_lane: str = "torch"):
+        """bn_lane: every BatchNorm's lane (models/norm.py), fixed for the
+        Trainer's life; the workloads' entry point picks it."""
         check_supported(cfg)
         self.cfg = cfg
+        self.bn_lane = bn_lane
         self.device = resolve_device(cfg.device)
         self.dtype = _DTYPES[cfg.compute_dtype]
         self.aug_cfg = {"train_512": AugmentConfig.train_512,
@@ -128,7 +133,8 @@ class Trainer:
             cfg.augment, AugmentConfig.none)(cfg.imagenet_norm)
         self.val_aug_cfg = AugmentConfig.none(cfg.imagenet_norm)
         self.loss_fn = resolve_loss(cfg.loss)
-        build_model(cfg.encoder, cfg.classes)  # raises early if not ported
+        # raises early if the encoder or the lane is not ported
+        build_model(cfg.encoder, cfg.classes, bn_lane)
 
     # ------------------------------------------------------------ setup
 
@@ -138,7 +144,7 @@ class Trainer:
         cfg = self.cfg
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(cfg.seed)
-            model = build_model(cfg.encoder, cfg.classes)
+            model = build_model(cfg.encoder, cfg.classes, self.bn_lane)
         if cfg.init_torch_checkpoint:
             sd = torch.load(cfg.init_torch_checkpoint, map_location="cpu",
                             weights_only=True)

@@ -5,7 +5,8 @@
 
 Phases, in order; any failure raises and the exit code is non-zero:
   1. the card's name and power limit (nvidia-smi); require_cuda();
-  2. build the CUDA kernels from ops/cuda/csrc (nvcc), print the time;
+  2. build the CUDA kernels from ops/cuda/csrc (nvcc), print the time
+     and each kernel's registers and spills (-Xptxas -v);
   3. each kernel against its plain PyTorch version on the card, on the
      same inputs: CC at 8- and 4-connectivity on [64,512,512] masks
      (blobs, uniform noise p=0.45, all-background, all-foreground, a
@@ -22,7 +23,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
      at the tests' [2,256,32] fp32; its training forward's lse (1e-5 of
      max |plain|, out bit-equal to the inference call's) and the two
      backward kernels' five gradients at the same shapes (1e-5 of max
-     |plain| in fp32, 1e-2 in bf16);
+     |plain| in fp32, 1e-2 in bf16); channel_sums at resnet34-UNet's BN
+     inputs at 512^2 bs6 (the stem [6,64,256,256], a layer3 BN
+     [6,256,32,32], the decoder's 16-channel top [6,16,512,512]),
+     channels_last and contiguous, fp32 and bf16, (x, x) and (dy, x),
+     within 1e-5 of the per-channel sum of |.| and the same bits on a
+     second call;
   4. the workloads through their CLI entry points, each with the launch
      counts set to 0 just before it and read just after:
      a. pseudo-labels (workloads/create_pseudo_labels.main) on a
@@ -62,14 +68,33 @@ Phases, in order; any failure raises and the exit code is non-zero:
         same weights: fp32 with TF32 off, per-parameter gradient relative
         L2 <= 1e-4 and loss <= 1e-5 relative; bf16, loss <= 1e-3 relative
         and sum |grad| within 5 %;
+     e. BCE+Dice training (workloads/train_bce_dice.main) on 4b's tree at
+        the workload's CONFIG (resnet34-UNet, bs6, 512^2, bf16 autocast,
+        train_512, BCE+Dice w 0.5, session_sorted, basic CSV) for
+        --epochs 2 --device cuda, once per BN lane: the kernel lane by
+        CARTSEG_PALLAS_BN=force, read by the entry point, with 46
+        ChannelSumsBatchNorm2d and channel_sums launched 92 times a step
+        (46 forward, 46 backward), and the torch lane with 46 BatchNorm2d
+        and no launch; no other kernel in either; the CSV, .pth, sidecar
+        and .last.pth, the .pth loading into the pseudo-labeller; then one
+        fp32 step (TF32 off) of the same config in both lanes from the
+        same weights and batch: loss 1e-5 relative, running stats 1e-5,
+        and the kernel lane's gradient no farther from the torch lane's
+        float64 gradient, or from the torch lane's fp32 one, than twice
+        the torch lane's own fp32 distance from float64 (relative L2);
   5. timing with CUDA events: the pseudo-label program per bs64 batch,
      the train step at bs6@512^2 (device-resident batch, loader
      excluded) and the ABL loss's share of it, SAM's set_image and
      predict and the global blocks' share of set_image, the SAM fine-tune
      step for both lanes with the global blocks' share and the device's
-     busy share, and each kernel against its plain version and, where one
-     PyTorch call computes the same function, that call, at the path's
-     shapes, beside its bound.
+     busy share, the BCE+Dice step in both BN lanes at 512^2 bs6 and at
+     bench.py's train half (224^2 bs128) with the BN layers' share and
+     the busy share, and each kernel against its plain version and,
+     where one PyTorch call computes the same function, that call, at
+     the path's shapes, beside its bound (channel_sums: per launch at
+     the stem, a layer3 BN and the decoder top, and over one step's 92
+     calls, against torch.batch_norm_stats and
+     torch.batch_norm_backward_reduce).
 The line before the last holds the kernels' JSON record, the one before
 it the card's name and power limit, and the last line
 {"ok": true, "device": {...}}.
@@ -79,6 +104,7 @@ from __future__ import annotations
 
 import csv
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -111,6 +137,8 @@ KERNELS = {
                      "cartseg_tpu/ops/pallas/flash_attention.py:179"),
     "flash_bwd_dkv": ("cartseg_tpu_torch/ops/cuda/csrc/flash_relpos_bwd.cu",
                       "cartseg_tpu/ops/pallas/flash_attention.py:232"),
+    "channel_sums": ("cartseg_tpu_torch/ops/cuda/csrc/channel_sums.cu",
+                     "cartseg_tpu/ops/pallas/channel_sums.py:39"),
 }
 PSEUDO_KERNELS = ("cc", "reach", "median")
 TRAIN_KERNELS = ("edt", "lsr_fwd", "lsr_bwd")
@@ -118,6 +146,16 @@ SAM_KERNELS = ("flash_fwd",)
 SAM_TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 BWD_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
 SAM_TRAIN_STEPS = 3
+# resnet34-UNet: 36 BatchNorms in the encoder, 10 in the decoder; the
+# kernel lane calls channel_sums once forward and once backward in each
+BCE_BN_LAYERS = 46
+BN_LANES = ("torch", "channel_sums")
+# BN inputs of resnet34-UNet at 512^2 bs6: the stem, a layer3 BN and the
+# decoder's 16-channel top
+SUMS_SHAPES = {"stem": (6, 64, 256, 256), "layer3": (6, 256, 32, 32),
+               "decoder top": (6, 16, 512, 512)}
+SUMS_TOL = 1e-5           # of sum |a| and of sum |a*b| per channel
+BENCH_TRAIN = (224, 128)  # bench.py's train half: 224^2, bs128
 LSR_TOL = {"lsr_fwd": 1e-5, "lsr_bwd": 2e-6}
 # flash kernel vs plain: max abs error over the plain output's max |value|
 FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
@@ -198,6 +236,30 @@ def bwd_bound(q: torch.Tensor, rel_h: torch.Tensor, kernel: str) -> tuple:
     written = qb + 2 * rb if dq else 2 * qb
     t_bytes, _ = bytes_bound(4 * qb + 2 * rb + 2 * bnh * S * 4 + written)
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def sums_bound(a: torch.Tensor, b: torch.Tensor, same: bool) -> tuple:
+    """channel_sums(a, b): a (and b unless it is a) read once, the two
+    fp32 [C] sums written once, at the HBM rate; an add and an FMA (3
+    FLOP) an element at the fp32 CUDA-core peak."""
+    n = nbytes(a) + (0 if same else nbytes(b)) + 2 * a.shape[1] * 4
+    t_bytes, _ = bytes_bound(n)
+    t_ops = 3.0 * a.numel() / PEAK_FLOPS[torch.float32] * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def ptxas_report(text: str) -> list:
+    """(kernel, 'Used ...' line, spill line) per entry function of the
+    compiler's -Xptxas -v output."""
+    rows, name, spill = [], None, ""
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            name, spill = line.split("'")[1], ""
+        elif "spill" in line:
+            spill = line.split(":", 1)[-1].strip()
+        elif "Used" in line and name:
+            rows.append((name, line.split(":", 1)[-1].strip(), spill))
+    return rows
 
 
 def check_equal(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -495,13 +557,9 @@ def phase_timing(ckpts, frames: np.ndarray, dev, card: str) -> dict:
             "library": library}
 
 
-def phase_train_workload(tmp: Path, dev) -> tuple:
-    """The ABL training workload through its CLI at its CONFIG."""
-    from cartseg_tpu_torch.infer.engine import load_member
-    from cartseg_tpu_torch.ops.cuda import build
-    from cartseg_tpu_torch.train.engine import SCHEMAS
+def make_train_tree(tmp: Path) -> tuple:
+    """The synthetic image+mask tree both training workloads run on."""
     from cartseg_tpu_torch.utils.synthetic import make_png_pair_tree
-    from cartseg_tpu_torch.workloads import train_bce_dice_abl as cli
 
     t0 = time.perf_counter()
     ir, mr = make_png_pair_tree(tmp / "train", TRAIN_SESSIONS,
@@ -509,6 +567,32 @@ def phase_train_workload(tmp: Path, dev) -> tuple:
     log(f"  training tree: {TRAIN_SESSIONS}x{TRAIN_PER_SESSION} PNG "
         f"frames+masks {FRAME_HW[1]}x{FRAME_HW[0]} in "
         f"{time.perf_counter() - t0:.1f} s")
+    return ir, mr
+
+
+def check_train_outputs(out: Path, schema: list) -> list:
+    """The CSV (header, two finite rows) and the .pth, sidecar and
+    .last.pth of a 2-epoch run; returns the CSV rows."""
+    with open(out / "training_metrics.csv") as f:
+        rows = list(csv.reader(f))
+    if rows[0] != schema or len(rows) != 3:
+        raise AssertionError(f"training_metrics.csv: header {rows[0]}, "
+                             f"{len(rows) - 1} rows")
+    if not all(np.isfinite(float(v)) for r in rows[1:] for v in r):
+        raise AssertionError(f"non-finite values in the CSV: {rows[1:]}")
+    for f in ("model.pth", "model.threshold.json", "model.last.pth"):
+        if not (out / f).exists():
+            raise AssertionError(f"{f} was not written")
+    return rows
+
+
+def phase_train_workload(tmp: Path, dev, ir: Path, mr: Path) -> tuple:
+    """The ABL training workload through its CLI at its CONFIG."""
+    from cartseg_tpu_torch.infer.engine import load_member
+    from cartseg_tpu_torch.ops.cuda import build
+    from cartseg_tpu_torch.train.engine import SCHEMAS
+    from cartseg_tpu_torch.workloads import train_bce_dice_abl as cli
+
     out = tmp / "run_abl"
     build.reset_launch_counts()
     t0 = time.perf_counter()
@@ -525,18 +609,9 @@ def phase_train_workload(tmp: Path, dev) -> tuple:
             raise AssertionError(f"kernel {k} was not launched by the "
                                  "training workload")
 
-    with open(out / "training_metrics.csv") as f:
-        rows = list(csv.reader(f))
-    if rows[0] != SCHEMAS["abl"] or len(rows) != 3:
-        raise AssertionError(f"training_metrics.csv: header {rows[0]}, "
-                             f"{len(rows) - 1} rows")
-    if not all(np.isfinite(float(v)) for r in rows[1:] for v in r):
-        raise AssertionError(f"non-finite values in the CSV: {rows[1:]}")
+    rows = check_train_outputs(out, SCHEMAS["abl"])
     hist = json.loads((out / "history.json").read_text())
     pth = out / "model.pth"
-    for f in (pth, out / "model.threshold.json", out / "model.last.pth"):
-        if not f.exists():
-            raise AssertionError(f"{f.name} was not written")
     member = load_member(pth, device=dev)
     side = json.loads((out / "model.threshold.json").read_text())
     if abs(member.threshold - result["threshold"]) > 1e-9 or \
@@ -621,6 +696,27 @@ def _busy_share(fn, n: int) -> float:
     busy = sum(e.time_range.elapsed_us() for e in prof.events()
                if e.device_type == DeviceType.CUDA)
     return busy / wall_us
+
+
+def device_ms(fn, n: int, match: str = "") -> float:
+    """Device time per call of fn: the summed durations of the kernels and
+    copies the profiler records over n calls (those whose name contains
+    `match`), over n, after one call unrecorded. Unlike CUDA events
+    around a loop, it leaves out the gaps in which the card waits for
+    the host."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == DeviceType.CUDA and match in e.name)
+    return total / n / 1e3
 
 
 def phase_train_timing(dev, card: str, hist) -> dict:
@@ -737,6 +833,334 @@ def phase_train_timing(dev, card: str, hist) -> dict:
             "library": library}
 
 
+def phase_bce_workload(tmp: Path, dev, ir: Path, mr: Path) -> dict:
+    """workloads/train_bce_dice through its CLI at its CONFIG (resnet34-
+    UNet, bs6, 512^2, bf16, train_512), 2 epochs, once per BN lane: the
+    kernel lane by CARTSEG_PALLAS_BN=force, read by the entry point.
+    Launches: channel_sums twice per BN layer and step in the kernel
+    lane, never in the torch lane, and no other kernel in either."""
+    from cartseg_tpu_torch.infer.engine import load_member
+    from cartseg_tpu_torch.models.norm import (BatchNorm2d,
+                                               ChannelSumsBatchNorm2d)
+    from cartseg_tpu_torch.ops.cuda import build
+    from cartseg_tpu_torch.train.engine import SCHEMAS
+    from cartseg_tpu_torch.workloads import train_bce_dice as cli
+
+    runs = {}
+    for lane, switch in (("channel_sums", "force"), ("torch", None)):
+        out = tmp / f"run_bce_{lane}"
+        prev = os.environ.pop("CARTSEG_PALLAS_BN", None)
+        if switch is not None:
+            os.environ["CARTSEG_PALLAS_BN"] = switch
+        try:
+            build.reset_launch_counts()
+            t0 = time.perf_counter()
+            result = cli.main(["--images_root", str(ir), "--masks_root",
+                               str(mr), "--out_dir", str(out), "--epochs",
+                               "2", "--device", "cuda"],
+                              log=lambda m: log(f"    {m}"))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(build.LAUNCHES)
+        finally:
+            os.environ.pop("CARTSEG_PALLAS_BN", None)
+            if prev is not None:
+                os.environ["CARTSEG_PALLAS_BN"] = prev
+        steps = result["state"].step
+        bns = [m for m in result["state"].model.modules()
+               if isinstance(m, torch.nn.BatchNorm2d)]
+        cls = ChannelSumsBatchNorm2d if switch else BatchNorm2d
+        want = 2 * BCE_BN_LAYERS * steps if switch else 0
+        others = {k: v for k, v in launches.items()
+                  if k != "channel_sums" and v}
+        log(f"  {lane} lane (CARTSEG_PALLAS_BN={switch}): {steps} steps in "
+            f"{wall:.1f} s wall (init, PNG decode, val and the sweep "
+            f"included); {len(bns)} BNs, all {cls.__name__}; launches "
+            f"{launches}")
+        if len(bns) != BCE_BN_LAYERS or any(type(m) is not cls
+                                            for m in bns):
+            raise AssertionError(f"{lane} lane: BN modules "
+                                 f"{sorted({type(m).__name__ for m in bns})}")
+        if launches["channel_sums"] != want or others or steps <= 0:
+            raise AssertionError(f"{lane} lane: channel_sums launched "
+                                 f"{launches['channel_sums']} times in "
+                                 f"{steps} steps, want {want}; others "
+                                 f"{others}")
+        rows = check_train_outputs(out, SCHEMAS["basic"])
+        member = load_member(out / "model.pth", encoder="resnet34",
+                             device=dev)
+        if abs(member.threshold - result["threshold"]) > 1e-9:
+            raise AssertionError("the .pth did not load with the sweep's "
+                                 "threshold")
+        hist = json.loads((out / "history.json").read_text())
+        log(f"  {lane} lane outputs: CSV {rows[1:]}, .pth + sidecar "
+            f"(threshold {member.threshold:.2f}) + .last.pth; the .pth "
+            "loads into the pseudo-labeller as resnet34")
+        runs[lane] = {"launches": launches, "steps": steps, "hist": hist}
+    return runs
+
+
+def bce_batch(hw: int, bs: int, dev) -> tuple:
+    """uint8 frames and blob masks at (hw, bs), on the card."""
+    from cartseg_tpu_torch.utils.synthetic import blob_masks, frame
+
+    r = np.random.default_rng(SEED)
+    imgs = torch.from_numpy(np.stack([frame(r, (hw, hw))
+                                      for _ in range(bs)])).to(dev)
+    masks = torch.from_numpy(blob_masks(r, (bs, hw, hw), n=3)[..., None]
+                             .astype(np.float32)).to(dev)
+    return imgs, masks
+
+
+def _rel_l2(a: dict, b: dict) -> float:
+    """Relative L2 distance of two gradients keyed alike, b the yardstick."""
+    return float(torch.cat([(a[k] - b[k]).reshape(-1) for k in b]).norm()
+                 / torch.cat([b[k].reshape(-1) for k in b]).norm())
+
+
+def phase_bce_reference(dev) -> None:
+    """One fp32 step (TF32 off) of the workload's CONFIG at 512^2 bs6 in
+    both lanes from the same weights, generator and batch: loss within
+    1e-5 relative and running statistics within 1e-5. The gradients
+    (read from the first moment) are held to the torch lane's gradient
+    in float64 on the same augmented batch: the kernel lane's fp32
+    gradient no farther from it, and no farther from the torch lane's
+    fp32 gradient, than twice the torch lane's own fp32 distance from
+    it. This model's fp32 gradient is ill conditioned (train-mode BN at
+    every layer): either lane's distance from float64, printed below, is
+    far above what a fixed tolerance between two BN implementations could
+    ask, and a wrong gradient would be O(1) away."""
+    from cartseg_tpu_torch.data.augment import augment_batch
+    from cartseg_tpu_torch.device import set_fp32_policy
+    from cartseg_tpu_torch.models import build_model
+    from cartseg_tpu_torch.ops.cuda import build
+    from cartseg_tpu_torch.train import Trainer
+    from cartseg_tpu_torch.train.config import apply_cli_overrides
+    from cartseg_tpu_torch.workloads.train_bce_dice import CONFIG
+
+    set_fp32_policy()
+    cfg = apply_cli_overrides(CONFIG, ["--device", "cuda", "--compute_dtype",
+                                       "float32"])
+    imgs, masks = bce_batch(S, TRAIN_BS, dev)
+    sw = torch.ones(TRAIN_BS, device=dev)
+    sd, outs = None, {}
+    for lane in BN_LANES:
+        tr = Trainer(cfg, bn_lane=lane)
+        st = tr.init_state()
+        if sd is None:
+            sd = {k: v.clone() for k, v in st.model.state_dict().items()}
+        st.model.load_state_dict(sd)
+        build.reset_launch_counts()
+        loss, ok, _ = tr.train_step(st, imgs, masks, sw, [1e-4] * 3,
+                                    [1.0] * 3, tr.group_ids(st))
+        torch.cuda.synchronize()
+        outs[lane] = (float(loss), {k: v.double() / 0.1
+                                    for k, v in st.opt.mu.items()},
+                      {k: v.clone() for k, v in st.model.state_dict().items()
+                       if k.endswith(("running_mean", "running_var"))},
+                      build.LAUNCHES["channel_sums"])
+    # the float64 yardstick: the torch lane on the step's augmented batch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cfg.seed)
+    x, m = augment_batch(gen, imgs, masks, tr.aug_cfg)
+    ref = build_model(cfg.encoder, cfg.classes, "torch")
+    ref.load_state_dict(sd)
+    ref = ref.to(dev).double().to(memory_format=torch.channels_last).train()
+    logits = ref(x.double().permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    l64, _ = tr.loss_fn(logits, m, sw)
+    g64 = dict(zip([k for k, _ in ref.named_parameters()],
+                   torch.autograd.grad(l64, list(ref.parameters()))))
+    (lt, gt, rt, nt), (lk, gk, rk, nk) = outs["torch"], outs["channel_sums"]
+    e_t, e_k, gap = _rel_l2(gt, g64), _rel_l2(gk, g64), _rel_l2(gk, gt)
+    per = {k: float((gk[k] - g64[k]).norm() / g64[k].norm()) for k in g64}
+    worst = max(per, key=per.get)
+    serr = max(float(((rk[k] - rt[k]).abs()
+                      / (1.0 + rt[k].abs())).max()) for k in rt)
+    lrel = abs(lk - lt) / abs(lt)
+    log(f"  fp32 step [{TRAIN_BS},{S},{S}] (TF32 off), channel_sums lane vs "
+        f"torch lane: loss {lk:.8f} vs {lt:.8f} (rel {lrel:.2e}, limit "
+        f"1e-5); gradient rel L2 to the float64 torch lane: torch lane "
+        f"{e_t:.3e}, channel_sums lane {e_k:.3e} (limit 2x the torch "
+        f"lane's), between the lanes {gap:.3e} (limit the same), worst "
+        f"parameter of the channel_sums lane {per[worst]:.3e} ({worst}); "
+        f"loss float64 {float(l64.detach()):.8f}; running stats max err "
+        f"{serr:.2e} "
+        f"(limit 1e-5); channel_sums launches {nk} / {nt}")
+    build.reset_launch_counts()
+    if not (lrel <= 1e-5 and e_k <= 2 * e_t and gap <= 2 * e_t
+            and serr <= 1e-5 and nk == 2 * BCE_BN_LAYERS and nt == 0):
+        raise AssertionError("fp32 step: the two BN lanes disagree")
+
+
+def _bn_inputs(st, step) -> list:
+    """(BN module, its input) for every BatchNorm in one call of step."""
+    seen = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: seen.append((mod, args[0].detach().clone())))
+        for m in st.model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    try:
+        step()
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def phase_bce_timing(dev, card: str) -> tuple:
+    """The BCE+Dice train step in both BN lanes at the workload's 512^2
+    bs6 and at bench.py's train half (224^2 bs128): ms and img/s in
+    alternating pairs, the device busy share, the BN layers' share
+    (their forward + backward alone on the inputs the step gives them);
+    and channel_sums against its plain version, the ATen BN reductions
+    and its bound, per launch at the stem, a layer3 BN and the decoder
+    top and summed over one 512^2 step's 92 calls, in device time (the
+    profiler's kernel durations) and in wall time (CUDA events). Returns
+    the decoder top's (dy, x) row: (ms, plain ms, library ms, bound ms,
+    bound_by)."""
+    from cartseg_tpu_torch.ops.channel_sums import (channel_sums,
+                                                    channel_sums_plain)
+    from cartseg_tpu_torch.ops.cuda import build
+    from cartseg_tpu_torch.train import Trainer
+    from cartseg_tpu_torch.train.config import apply_cli_overrides
+    from cartseg_tpu_torch.workloads.train_bce_dice import CONFIG
+
+    bn_inputs = None
+    for hw, bs in ((S, TRAIN_BS), BENCH_TRAIN):
+        cfg = apply_cli_overrides(CONFIG, ["--device", "cuda", "--img_size",
+                                           str(hw), "--batch_size", str(bs)])
+        if hw == S:
+            imgs, masks = bce_batch(hw, bs, dev)
+        else:                                     # bench.py:81-85
+            r = np.random.default_rng(0)
+            imgs = torch.from_numpy(r.integers(0, 255, (bs, hw, hw, 3),
+                                               np.uint8)).to(dev)
+            masks = torch.from_numpy((r.random((bs, hw, hw, 1)) > 0.7)
+                                     .astype(np.float32)).to(dev)
+        sw = torch.ones(bs, device=dev)
+        steps = {}
+        for lane in BN_LANES:
+            tr = Trainer(cfg, bn_lane=lane)
+            st = tr.init_state()
+            gids = tr.group_ids(st)
+            steps[lane] = (tr, st, (lambda tr=tr, st=st, gids=gids:
+                                    tr.train_step(st, imgs, masks, sw,
+                                                  [1e-4] * 3, [1.0] * 3,
+                                                  gids)))
+        reps = 20 if hw == S else 8
+        for lane in BN_LANES:
+            cuda_ms(steps[lane][2], 3)            # warm-up, cuDNN autotune
+        t1 = cuda_ms(steps["torch"][2], reps)
+        k1 = cuda_ms(steps["channel_sums"][2], reps)
+        k2 = cuda_ms(steps["channel_sums"][2], reps)
+        t2 = cuda_ms(steps["torch"][2], reps)
+        for lane, (a, b) in (("torch", (t1, t2)),
+                             ("channel_sums", (k1, k2))):
+            tr, st, step = steps[lane]
+            busy = _busy_share(step, 3)
+            seen = _bn_inputs(st, step)
+            gen = torch.Generator(device="cpu").manual_seed(SEED)
+            cots = [torch.randn(x.shape, generator=gen).to(x.dtype).to(dev)
+                    .contiguous(memory_format=torch.channels_last)
+                    for _, x in seen]
+
+            def bns(seen=seen, cots=cots):
+                for (m, x), g in zip(seen, cots):
+                    xi = x.requires_grad_(True)
+                    y = m(xi)
+                    torch.autograd.grad(y, (xi, m.weight, m.bias), g)
+
+            step_dev, bn_dev = device_ms(step, 2), device_ms(bns, 2)
+            ms = (a + b) / 2
+            log(f"  train step resnet34-UNet bs{bs}@{hw}^2 (bf16 autocast, "
+                f"train_512, BCE+Dice, AdamW), {lane} lane: {a:.3f}/{b:.3f} "
+                f"ms, {bs * 1000.0 / ms:.2f} img/s; device time of a step "
+                f"{step_dev:.3f} ms, of its {len(seen)} BN layers' forward "
+                f"+ backward (run alone on the step's inputs) {bn_dev:.3f} "
+                f"ms, share {bn_dev / step_dev:.4f}; device busy share "
+                f"{busy:.4f} [{card}]")
+            if hw == S and lane == "channel_sums":
+                bn_inputs = (seen, cots)
+        del steps
+    build.reset_launch_counts()
+
+    # channel_sums at the path's inputs: every BN of one 512^2 bs6 step
+    seen, cots = bn_inputs
+    if len(seen) != BCE_BN_LAYERS:
+        raise AssertionError(f"{len(seen)} BN inputs captured")
+    calls = []
+    for (m, x), g in zip(seen, cots):
+        x = x.detach()
+        mean, invstd = torch.batch_norm_stats(x, m.eps)
+        w = m.weight.detach()
+        calls.append(((x, x, True),
+                      lambda x=x, m=m: torch.batch_norm_stats(x, m.eps)))
+        calls.append(((g, x, False),
+                      lambda g=g, x=x, mean=mean, invstd=invstd, w=w:
+                      torch.batch_norm_backward_reduce(
+                          g, x, mean, invstd, w, True, True, True)))
+    top = seen[-1][1]
+    cl = top.is_contiguous(memory_format=torch.channels_last)
+    log(f"  channel_sums inputs from one step: {len(calls)} calls, "
+        f"{top.dtype}, channels_last {cl}; the decoder top "
+        f"{tuple(top.shape)}")
+
+    def each(fn_of):
+        return lambda: [fn_of(c) for c in calls]
+
+    kern = each(lambda c: channel_sums(c[0][0], c[0][1]))
+    plain = each(lambda c: channel_sums_plain(c[0][0], c[0][1]))
+    lib = each(lambda c: c[1]())
+    p1, k1, l1, k2, p2 = (cuda_ms(plain, 3), cuda_ms(kern, 10),
+                          cuda_ms(lib, 10), cuda_ms(kern, 10),
+                          cuda_ms(plain, 3))
+    kd, pd, ld = (device_ms(kern, 3, "sums_"), device_ms(plain, 3),
+                  device_ms(lib, 3))
+    bound = sum(sums_bound(*c[0])[0] for c in calls)
+    log(f"  channel_sums, the {len(calls)} calls of one step, wall (CUDA "
+        f"events, the host's enqueueing included): kernel {k1:.4f}/{k2:.4f} "
+        f"ms, plain {p1:.4f}/{p2:.4f} ms, batch_norm_stats + "
+        f"batch_norm_backward_reduce {l1:.4f} ms; device time (profiler): "
+        f"kernel {kd:.4f} ms, plain {pd:.4f} ms, ATen {ld:.4f} ms; bound "
+        f"{bound:.5f} ms (bytes), kernel's device time at "
+        f"{bound / kd:.3f} of it [{card}]")
+
+    # per launch at three of the path's inputs: the stem, a layer3 BN and
+    # the decoder top, forward (x, x) and backward (dy, x)
+    picks = {"stem": 0, "layer3": next(
+        i for i, (_, x) in enumerate(seen) if x.shape[1] == 256),
+        "decoder top": len(seen) - 1}
+    per = {}
+    for name, i in picks.items():
+        for what, c in (("(x, x)", calls[2 * i]), ("(dy, x)",
+                                                   calls[2 * i + 1])):
+            a, b, same = c[0]
+
+            def kern1(a=a, b=b):
+                return channel_sums(a, b)
+
+            def plain1(a=a, b=b):
+                return channel_sums_plain(a, b)
+
+            ka, la, kb = cuda_ms(kern1, 50), cuda_ms(c[1], 50), cuda_ms(
+                kern1, 50)
+            kd1, kd2 = device_ms(kern1, 20, "sums_"), device_ms(
+                kern1, 20, "sums_")
+            pd1, ld1 = device_ms(plain1, 5), device_ms(c[1], 20)
+            bnd, by = sums_bound(a, b, same)
+            per[(name, what)] = ((kd1 + kd2) / 2, pd1, ld1, bnd, by)
+            libname = ("batch_norm_stats" if same
+                       else "batch_norm_backward_reduce")
+            log(f"  channel_sums {name} {tuple(a.shape)} {what}: device time "
+                f"(profiler) kernel {kd1:.5f}/{kd2:.5f} ms, plain "
+                f"{pd1:.5f} ms, {libname} {ld1:.5f} ms; wall per call (CUDA "
+                f"events, the host's enqueueing included) kernel "
+                f"{ka:.5f}/{kb:.5f} ms, {libname} {la:.5f} ms; bound "
+                f"{bnd:.5f} ms ({by}), kernel's device time at "
+                f"{bnd / ((kd1 + kd2) / 2):.3f} of it [{card}]")
+    build.reset_launch_counts()
+    return per[("decoder top", "(dy, x)")]
+
+
 def flash_inputs(bnh: int, g: int, hd: int, dtype, dev) -> list:
     """q, k, v ~ N(0,1) [bnh,g*g,hd] and the rel factors 0.5*N(0,1)
     [bnh,g*g,g] (tests/test_flash_attention.py's recipe), seeded."""
@@ -822,6 +1246,53 @@ def phase_compare_flash_bwd(dev) -> dict:
             "flash_bwd_dq": max(per["dq"], per["drel_h"], per["drel_w"]),
             "flash_bwd_dkv": max(per["dk"], per["dv"])}
     return errs
+
+
+def phase_compare_channel_sums(dev) -> float:
+    """channel_sums against channel_sums_plain at resnet34-UNet's BN
+    inputs at 512^2 bs6 (SUMS_SHAPES), channels_last and contiguous,
+    fp32 and bf16, (x, x) and (dy, x): each sum within SUMS_TOL of the
+    per-channel sum |a| and sum |a*b|, and the same bits on a second
+    call. Returns the largest absolute error."""
+    from cartseg_tpu_torch.ops.channel_sums import (channel_sums,
+                                                    channel_sums_plain)
+
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    worst = 0.0
+    for name, shape in SUMS_SHAPES.items():
+        x32 = (torch.randn(shape, generator=gen) * 2 + 0.5).to(dev)
+        dy32 = torch.randn(shape, generator=gen).to(dev)
+        for dt in (torch.float32, torch.bfloat16):
+            for fmt in (torch.channels_last, torch.contiguous_format):
+                x = x32.to(dt).contiguous(memory_format=fmt)
+                dy = dy32.to(dt).contiguous(memory_format=fmt)
+                for what, a, b in (("(x, x)", x, x), ("(dy, x)", dy, x)):
+                    got = channel_sums(a, b)
+                    again = channel_sums(a, b)
+                    want = channel_sums_plain(a, b)
+                    af, bf = a.float(), b.float()
+                    tol = (SUMS_TOL * af.abs().sum((0, 2, 3)),
+                           SUMS_TOL * (af * bf).abs().sum((0, 2, 3)))
+                    rel = 0.0
+                    for g, w, t, h in zip(got, want, tol, again):
+                        err = (g - w).abs()
+                        rel = max(rel, float((err / t).max()) * SUMS_TOL)
+                        worst = max(worst, float(err.max()))
+                        if not bool((err <= t).all()) or \
+                                not torch.equal(g, h):
+                            raise AssertionError(
+                                f"channel_sums {name} {tuple(shape)} {dt} "
+                                f"{fmt} {what}: max abs err "
+                                f"{float(err.max())}, {rel:.3e} of the sum "
+                                f"of |.|, same bits twice "
+                                f"{torch.equal(g, h)}")
+                    log(f"  channel_sums {name} {tuple(shape)} {dt} "
+                        f"{'NHWC' if fmt == torch.channels_last else 'NCHW'}"
+                        f" {what}: max err {rel:.3e} of the per-channel "
+                        f"sum of |.| (tolerance {SUMS_TOL}); the same bits "
+                        f"on a second call")
+        del x32, dy32, x, dy
+    return worst
 
 
 def sam_checkpoint(path: Path, cfg, norm_noise: bool = False) -> None:
@@ -1372,9 +1843,8 @@ def main() -> int:
     build.load_library()
     log(f"  kernels built and loaded in {time.perf_counter() - t0:.2f} s "
         f"({build.library_path().name})")
-    for line in build.BUILD_LOG["text"].splitlines():
-        if "Used" in line or "error" in line.lower():
-            log(f"  ptxas: {line.strip()}")
+    for name, used, spill in ptxas_report(build.BUILD_LOG["text"]):
+        log(f"  ptxas: {name[:90]}: {used}; {spill or 'no spill report'}")
 
     from cartseg_tpu_torch.utils.synthetic import make_png_tree
 
@@ -1391,13 +1861,15 @@ def main() -> int:
         errs["flash_fwd"] = phase_compare_flash(dev)
         bwd_errs = phase_compare_flash_bwd(dev)
         errs.update(bwd_errs[FLASH_CASES[1]])
+        errs["channel_sums"] = phase_compare_channel_sums(dev)
 
         log("phase 4a: pseudo-label workload")
         launches, ckpts = phase_workload(tmp, dev)
         phase_reference(ckpts, frames, dev)
 
         log("phase 4b: training workload (train_bce_dice_abl)")
-        train_launches, hist = phase_train_workload(tmp, dev)
+        ir, mr = make_train_tree(tmp)
+        train_launches, hist = phase_train_workload(tmp, dev, ir, mr)
         phase_train_reference(dev)
 
         log("phase 4c: SAM ViT-B predictor (tools/annotate.load_sam)")
@@ -1407,11 +1879,17 @@ def main() -> int:
         log("phase 4d: SAM ViT-B encoder fine-tune step")
         sam_train = phase_sam_train(tmp, dev)
 
+        log("phase 4e: BCE+Dice training workload (train_bce_dice), both "
+            "BN lanes")
+        bce_runs = phase_bce_workload(tmp, dev, ir, mr)
+        phase_bce_reference(dev)
+
         log("phase 5: timing")
         timing = phase_timing(ckpts, frames, dev, card)
         train_timing = phase_train_timing(dev, card, hist)
         sam_timing = phase_sam_timing(pred, sam_frames, dev, card)
         sam_train_timing = phase_sam_train_timing(sam_train, dev, card)
+        bce_timing = phase_bce_timing(dev, card)
 
     launches.update({k: train_launches[k] for k in TRAIN_KERNELS})
     launches.update({k: sam_launches[k] for k in SAM_KERNELS})
@@ -1427,6 +1905,14 @@ def main() -> int:
         launches[k] = sam_train["launches"][k]
         ms, plain, lib, b, by = sam_train_timing["kernels"][torch.bfloat16][k]
         times[k], bounds[k], library[k] = (ms, plain), (b, by), lib
+    # channel_sums: the kernel-lane workload run's count; device times
+    # (profiler) at the decoder top's backward sums, the path's largest
+    # launch, whose wall time the host's enqueueing sets
+    launches["channel_sums"] = bce_runs["channel_sums"]["launches"][
+        "channel_sums"]
+    ms, plain, lib, b, by = bce_timing
+    times["channel_sums"] = (ms, plain)
+    bounds["channel_sums"], library["channel_sums"] = (b, by), lib
     record = {"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], "max_abs_err": errs[k],

@@ -21,12 +21,18 @@ the output, the JAX flash test's own bound). The two backward kernels against
 one's max |value|: 1e-5 in float32 (as the forward), 1e-2 in bfloat16
 (both sides sum in fp32 from the same bf16 inputs and round once to bf16,
 so they differ by at most one bf16 step, 2^-7 = 7.8e-3 of a value).
+The channel-sums kernel against `channel_sums_plain`: 1e-5 of sum |a|
+and of sum |a*b| per channel (fp32 accumulation in another order; bf16
+inputs are widened exactly on both sides), and the same bits on a
+second run (fixed-order partial sums, no atomics).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from cartseg_tpu_torch.ops.channel_sums import (channel_sums,
+                                                channel_sums_plain)
 from cartseg_tpu_torch.ops.cuda import build
 from cartseg_tpu_torch.ops.cuda.cc import (cc_batch, cc_batch_plain,
                                            reach_batch, reach_batch_plain)
@@ -209,9 +215,13 @@ def test_launch_counters_count_kernel_launches_only(cuda_device):
     out, lse = flash_relpos_fwd(*fa, 0.125, 4, with_lse=True)
     flash_relpos_bwd_plain(*fa, out, lse, out, 0.125, 4)  # plain: no count
     flash_relpos_bwd(*fa, out, lse, out, 0.125, 4)
+    a = torch.ones((2, 3, 4, 5))
+    channel_sums(a, a)                            # CPU: plain version
+    channel_sums(a.to(cuda_device), a.to(cuda_device))
     assert build.LAUNCHES == {"cc": 1, "reach": 1, "median": 1, "edt": 1,
                               "lsr_fwd": 1, "lsr_bwd": 1, "flash_fwd": 1,
-                              "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+                              "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
+                              "channel_sums": 1}
     build.reset_launch_counts()
 
 
@@ -388,4 +398,142 @@ def test_sam_predictor_on_the_card_matches_the_cpu(cuda_device):
     (fc, mc, ic), (fg, mg, ig) = out["cpu"], out[str(cuda_device)]
     assert (fg - fc).abs().max() <= 1e-4
     assert np.abs(mg - mc).max() <= 1e-3 and np.abs(ig - ic).max() <= 1e-4
+    build.reset_launch_counts()
+
+
+# ---------------------------------------------------------- channel sums
+
+def _sums_inputs(shape, dtypes, layout, dev, seed=0):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    a = torch.randn(shape, generator=gen) * 2 + 0.5
+    b = torch.randn(shape, generator=gen)
+    fmt = (torch.channels_last if layout == "nhwc"
+           else torch.contiguous_format)
+    return [t.to(d).to(dev).contiguous(memory_format=fmt)
+            for t, d in zip((a, b), dtypes)]
+
+
+def _check_sums(a, b):
+    got = channel_sums(a, b)
+    torch.cuda.synchronize()
+    want = channel_sums_plain(a, b)
+    af, bf = a.float(), b.float()
+    tol = (1e-5 * af.abs().sum((0, 2, 3)),
+           1e-5 * (af * bf).abs().sum((0, 2, 3)))
+    for g, w, t in zip(got, want, tol):
+        assert g.dtype == torch.float32 and g.shape == (a.shape[1],)
+        assert bool(((g - w).abs() <= t).all()), float((g - w).abs().max())
+    again = channel_sums(a, b)
+    for g, h in zip(got, again):
+        assert torch.equal(g, h)
+    return got
+
+
+@pytest.mark.parametrize("same", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["nhwc", "nchw"])
+@pytest.mark.parametrize("shape", [(2, 3, 17, 9), (6, 16, 64, 48),
+                                   (3, 64, 31, 33), (4, 512, 8, 8),
+                                   (1, 16, 1, 1)])
+def test_channel_sums_kernel_within_tolerance_of_plain(cuda_device, shape,
+                                                       layout, dtype, same):
+    a, b = _sums_inputs(shape, (dtype, dtype), layout, cuda_device)
+    build.reset_launch_counts()
+    _check_sums(a, a if same else b)
+    assert build.LAUNCHES["channel_sums"] == 2
+    build.reset_launch_counts()
+
+
+@pytest.mark.parametrize("layout", ["nhwc", "nchw"])
+def test_channel_sums_kernel_mixed_types_and_misaligned(cuda_device, layout):
+    """(bf16, fp32) in both orders, and a view one element past an
+    aligned start, which takes the one-element loads."""
+    for dtypes in ((torch.bfloat16, torch.float32),
+                   (torch.float32, torch.bfloat16)):
+        _check_sums(*_sums_inputs((3, 24, 20, 12), dtypes, layout,
+                                  cuda_device))
+    big = torch.randn(1 + 2 * 16 * 8 * 8, device=cuda_device)
+    a = big[1:].view(2, 16, 8, 8)
+    if layout == "nhwc":
+        a = big[1:].view(2, 8, 8, 16).permute(0, 3, 1, 2)
+    _check_sums(a, a)
+
+
+def test_channel_sums_kernel_past_2_31_elements(cuda_device):
+    """[2,17,8192,8192] bf16, 2.3e9 elements (4.6 GB): int64 offsets in
+    both memory orders."""
+    a = torch.empty((2, 17, 8192, 8192), dtype=torch.bfloat16,
+                    device=cuda_device)
+    a.normal_(0.5, 1.0, generator=torch.Generator(cuda_device).manual_seed(0))
+    assert a.numel() > 2 ** 31
+    got = channel_sums(a, a)
+    torch.cuda.synchronize()
+    for c in (0, 16):                 # the plain sums a channel at a time
+        ac = a[:, c:c + 1].float()
+        want = channel_sums_plain(ac, ac)
+        tol = (1e-5 * float(ac.abs().sum()), 1e-5 * float((ac * ac).sum()))
+        for g, w, t in zip(got, want, tol):
+            assert abs(float(g[c]) - float(w[0])) <= t
+        del ac
+    cl = a.contiguous(memory_format=torch.channels_last)
+    del a
+    got_cl = channel_sums(cl, cl)
+    for g, h in zip(got, got_cl):
+        torch.testing.assert_close(g, h, rtol=1e-5, atol=0)
+
+
+def test_channel_sums_wrapper_refuses_what_the_kernel_does_not_take(
+        cuda_device):
+    a = torch.zeros((2, 4, 6, 8), device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        channel_sums(a.transpose(2, 3), a.transpose(2, 3))
+    with pytest.raises(ValueError, match="contiguous"):
+        channel_sums(a, a.contiguous(memory_format=torch.channels_last))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        channel_sums(a.half(), a.half())
+    with pytest.raises(ValueError):
+        channel_sums(a, a.cpu())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_lane_bn_on_the_card_matches_the_torch_lane(cuda_device,
+                                                           dtype,
+                                                           monkeypatch):
+    """One channels_last train step through ChannelSumsBatchNorm2d: two
+    launches (forward stats, backward sums), no plain version, and y,
+    dx, dgamma, dbeta and the running stats as the torch lane's. fp32:
+    1e-4. bf16: y and dx within 0.05, JAX's own bound for its bf16
+    TpuBatchNorm (the kernel lane rounds each elementwise op to bf16 as
+    flax does, cuDNN once); dgamma, dbeta and the running stats, fp32
+    sums of the same bf16 values, within 1e-3."""
+    from cartseg_tpu_torch.models.norm import batch_norm
+    from cartseg_tpu_torch.ops import channel_sums as ops_cs
+
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    x = (torch.randn((6, 32, 40, 24), generator=gen) * 2 + 0.5).to(dtype)
+    dy = torch.randn(x.shape, generator=gen).to(dtype)
+    lanes = {}
+    for lane in ("torch", "channel_sums"):
+        bn = batch_norm(32, 1e-5, lane).to(cuda_device).train()
+        with torch.no_grad():
+            bn.weight.copy_(torch.linspace(0.5, 1.5, 32))
+            bn.bias.copy_(torch.linspace(-1, 1, 32))
+        xi = x.to(cuda_device).contiguous(
+            memory_format=torch.channels_last).requires_grad_(True)
+        build.reset_launch_counts()
+        if lane == "channel_sums":
+            monkeypatch.setattr(ops_cs, "channel_sums_plain", None)
+        y = bn(xi)
+        y.backward(dy.to(cuda_device).contiguous(
+            memory_format=torch.channels_last))
+        torch.cuda.synchronize()
+        lanes[lane] = (y.float(), xi.grad.float(), bn.weight.grad,
+                       bn.bias.grad, bn.running_mean, bn.running_var,
+                       build.LAUNCHES["channel_sums"])
+    t, k = lanes["torch"], lanes["channel_sums"]
+    assert t[-1] == 0 and k[-1] == 2
+    for i, (a, b) in enumerate(zip(k[:-1], t[:-1])):
+        tol = (1e-4 if dtype == torch.float32 else
+               0.05 if i < 2 else 1e-3)
+        torch.testing.assert_close(a, b, rtol=tol, atol=tol)
     build.reset_launch_counts()

@@ -549,7 +549,7 @@ def test_cuda_is_refused_without_a_card(png_pair_tree, tmp_path):
 @pytest.mark.parametrize("field,value", [
     ("sources_json", "s.json"), ("decoder", "unetpp"), ("remat", "true"),
     ("trace_dir", "t"), ("pretrained_encoder", "e.pth"),
-    ("encoder", "resnet34"), ("loss", "boundary")])
+    ("encoder", "classic"), ("loss", "boundary")])
 def test_out_of_scope_settings_raise(field, value, tmp_path):
     cfg = t_overrides(t_workload.CONFIG, [f"--{field}", value, "--device",
                                           "cpu"])
