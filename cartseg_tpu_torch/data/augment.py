@@ -278,7 +278,7 @@ def augment_batch(gen: torch.Generator, images_u8, masks,
     float32 masks), all on the device of the inputs and of `gen`."""
     if cfg.per_sample_warp:
         raise NotImplementedError(
-            "per_sample_warp is not ported (ROADMAP.md Queue 1 item 4)")
+            "per_sample_warp is not ported (ROADMAP.md Queue 1 item 11)")
     B, H, W, _ = images_u8.shape
     dev = images_u8.device
     # every small per-sample draw from one [17,B] uniform matrix, the

@@ -6,7 +6,7 @@ thread pool; each batch is stacked into pinned memory (on a CUDA
 device) and copied with `non_blocking=True` to the explicit device
 while the previous step computes. Augmentation and normalisation run on
 the device. Multi-host row slicing (the JAX loader's sharding path) is
-the data-parallel slice's (ROADMAP.md Queue 1 item 10).
+the data-parallel slice's (ROADMAP.md Queue 1 item 8).
 """
 
 from __future__ import annotations

@@ -1,13 +1,18 @@
 """Label-smoothed softmax cross-entropy (counterpart of
 cartseg_tpu/losses/label_smooth.py):
 
-  * `smooth_one_hot`     - smoothed one-hot rows, all zero where ignored
+  * `smooth_one_hot`     - smoothed one-hot rows, all zero where ignored:
+    the CUDA kernel of the JAX package's `smooth_one_hot_pallas` on the
+    card (ops/cuda/one_hot.py), its plain version on the CPU
   * `lsr_cross_entropy`  - the V1 math under autograd (the oracle)
   * `lsr_ce`             - unreduced LSR CE as a torch.autograd.Function
     whose forward and backward are the CUDA kernels on the card
     (ops/cuda/lsr.py; the JAX package's `lsr_ce_pallas`, the analog of
     the reference's lsr_cpp extension) and their plain versions on the
     CPU. The backward needs only the logits and labels.
+  * `lsr_cross_entropy_fused` - the JAX package's name for the same
+    function: unreduced, with the V2 hand-derived backward
+    (label_smooth.py:61-90 there), which is what `lsr_ce` computes.
 
 Layout: channels-last, logits [..., C], labels [...] integer.
 """
@@ -17,20 +22,21 @@ from __future__ import annotations
 import torch
 
 from cartseg_tpu_torch.ops.cuda.lsr import lsr_bwd, lsr_fwd
+from cartseg_tpu_torch.ops.cuda.one_hot import one_hot
 
 
 def smooth_one_hot(labels: torch.Tensor, num_classes: int,
                    lb_smooth: float = 0.1,
                    ignore_index: int = -100) -> torch.Tensor:
-    """labels [...] -> [..., C] float32: lb_pos at the label, lb_neg
-    elsewhere, all-zero rows where labels == ignore_index."""
-    ignore = labels == ignore_index
-    safe = torch.where(ignore, torch.zeros_like(labels), labels).long()
-    lb_pos = 1.0 - lb_smooth
-    lb_neg = lb_smooth / num_classes
-    oh = torch.nn.functional.one_hot(safe, num_classes).to(torch.float32)
-    oh = oh * (lb_pos - lb_neg) + lb_neg
-    return torch.where(ignore.unsqueeze(-1), 0.0, oh)
+    """labels [...] -> [..., C] float32: lb_pos = 1 - lb_smooth at the
+    label, lb_neg = lb_smooth / C elsewhere, all-zero rows where labels
+    == ignore_index. The values are those `smooth_one_hot_pallas` writes;
+    the JAX XLA lane's `oh * (lb_pos - lb_neg) + lb_neg` can round
+    lb_pos one float32 ulp away from them."""
+    if labels.dtype not in (torch.int32, torch.int64):
+        labels = labels.long()
+    return one_hot(labels.contiguous(), num_classes, lb_smooth,
+                   ignore_index)
 
 
 def lsr_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -73,3 +79,8 @@ def lsr_ce(logits: torch.Tensor, labels: torch.Tensor,
            lb_smooth: float = 0.1, ignore_index: int = -100) -> torch.Tensor:
     """Per-position LSR CE [...] (unreduced); logits [..., C]."""
     return _LSRCrossEntropy.apply(logits, labels, lb_smooth, ignore_index)
+
+
+# the JAX package's name (cartseg_tpu/losses/label_smooth.py:61): the same
+# function and hand-derived backward as `lsr_ce`
+lsr_cross_entropy_fused = lsr_ce

@@ -105,7 +105,7 @@ def jax_variables_to_state_dict(variables_np: Mapping,
     if encoder not in ("efficientnet-b0", "resnet34", "resnet18"):
         raise NotImplementedError(
             f"convert: encoder {encoder!r} is not ported yet (ROADMAP.md "
-            "Queue 1 item 8)")
+            "Queue 1 item 5)")
     leaves = {**_flatten(variables_np["params"]),
               **_flatten(variables_np.get("batch_stats", {}))}
     sd = {}

@@ -26,7 +26,7 @@ def build_model(encoder_name: str = "efficientnet-b0", classes: int = 1,
     elif encoder_name == "classic":
         raise NotImplementedError(
             "encoder 'classic' (models/classic_unet.py) is not ported yet "
-            "(ROADMAP.md Queue 1 item 8: other model families)")
+            "(ROADMAP.md Queue 1 item 5: other model families)")
     else:
         raise ValueError(f"unknown encoder {encoder_name!r}")
     return UNet(enc, classes=classes, bn_lane=bn_lane)

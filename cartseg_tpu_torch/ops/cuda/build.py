@@ -40,7 +40,10 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 LAUNCHES = {"cc": 0, "reach": 0, "median": 0, "edt": 0, "lsr_fwd": 0,
             "lsr_bwd": 0, "flash_fwd": 0, "flash_bwd_dq": 0,
-            "flash_bwd_dkv": 0, "channel_sums": 0}
+            "flash_bwd_dkv": 0, "channel_sums": 0, "focal": 0,
+            "soft_dice": 0, "one_hot": 0, "mish_fwd": 0, "mish_bwd": 0,
+            "swish_fwd": 0, "swish_bwd": 0, "hswish_fwd": 0,
+            "hswish_bwd": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -72,6 +75,14 @@ _SIGNATURES = {
     #  tc, R, stream)
     "cartseg_channel_sums": (_P,) * 4 + (_I,) * 4 + (_L, _I, _L) + (_I,) * 4
     + (_P,),
+    # (x, y, loss, grad, n, gamma, alpha, vec, stream)
+    "cartseg_focal": (_P,) * 4 + (_L, _F, _F, _I, _P),
+    # (x, y, partials, out, B, M, P, vec, pexp, stream)
+    "cartseg_soft_dice": (_P,) * 4 + (_I, _L, _I, _I, _F, _P),
+    # (labels, out, n, C, hi, lo, ignore, labels int64, vec, stream)
+    "cartseg_one_hot": (_P, _P, _L, _I, _F, _F, _L, _I, _I, _P),
+    # (kind, x, g or null, out, n, vec, stream)
+    "cartseg_activation": (_I, _P, _P, _P, _L, _I, _P),
 }
 
 
@@ -169,3 +180,9 @@ def stream_of(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def aligned16(*ts) -> int:
+    """1 when every tensor's data starts on a 16-byte boundary (a kernel
+    may then load and store 4 floats at once), else 0."""
+    return int(all(t.data_ptr() % 16 == 0 for t in ts))

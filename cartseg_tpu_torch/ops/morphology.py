@@ -3,7 +3,7 @@ cartseg_tpu/ops/morphology.py:37-70), keeping cv2's border rules:
 dilation sees 0 outside the image, erosion sees fg (cv2's +inf constant
 border for erode). Only the square shape is on the ported path (the
 QC's mask boundary); the elliptical kernels come with the cleaning
-toolchain (ROADMAP.md Queue 1 item 9).
+toolchain (ROADMAP.md Queue 1 item 6).
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ official `sam_vit_b_*.pth` checkpoint on the given device. The JAX
 package's host `segment_anything` backend is not ported: the port's own
 predictor is the only backend. The cv2 UI (`run_ui`), `seg_friendly`,
 `smooth_mask`, `fill_holes`, `AnnotationSession`, `PrefetchWorker` and
-`TPUProposer` are not ported yet (ROADMAP.md Queue 1 item 12).
+`TPUProposer` are not ported yet (ROADMAP.md Queue 1 item 10).
 """
 
 from __future__ import annotations

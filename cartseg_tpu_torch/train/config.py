@@ -129,17 +129,17 @@ def check_supported(cfg: TrainConfig) -> None:
     todo = []
     if cfg.sources or cfg.sources_json:
         todo.append("sources/sources_json: mixed-source curriculum and "
-                    "data/sampling.py (ROADMAP.md Queue 1 item 8)")
+                    "data/sampling.py (ROADMAP.md Queue 1 item 4)")
     if cfg.decoder != "unet":
-        todo.append(f"decoder {cfg.decoder!r} (ROADMAP.md Queue 1 item 8)")
+        todo.append(f"decoder {cfg.decoder!r} (ROADMAP.md Queue 1 item 5)")
     if cfg.remat:
         todo.append("remat: activation recompute (ROADMAP.md Queue 1 "
-                    "item 5)")
+                    "item 4)")
     if cfg.trace_dir:
         todo.append("trace_dir: profiler traces of the first epoch "
-                    "(ROADMAP.md Queue 1 item 5)")
+                    "(ROADMAP.md Queue 1 item 4)")
     if cfg.pretrained_encoder:
-        todo.append("pretrained_encoder (ROADMAP.md Queue 1 item 2)")
+        todo.append("pretrained_encoder (ROADMAP.md Queue 1 item 3)")
     if cfg.init_checkpoint:
         todo.append("init_checkpoint: an Orbax directory of the JAX "
                     "package; give a .pth as init_torch_checkpoint")

@@ -2,7 +2,8 @@
 
 One train step: on-device augmentation, the model forward under
 autocast (bf16 compute, fp32 parameters), the loss in fp32 (for
-bce_dice_abl the EDT and LSR CUDA kernels on the card), backward,
+bce_dice_abl the EDT and LSR CUDA kernels on the card, for boundary the
+EDT kernel), backward,
 per-group AdamW and the BN running-stat update (BN in the lane the
 Trainer is built with: torch's fused kernel, or the channel-sums CUDA
 kernel, models/norm.py). Losses stay on the
@@ -13,9 +14,8 @@ ends with a threshold sweep on the best checkpoint and writes the
 
 Out of this slice (raise NotImplementedError, train/config.py
 `check_supported`): mixed sources and the curriculum sampler, UNet++,
-remat, profiler traces, pretrained encoders, Orbax init checkpoints;
-the `boundary` loss (ROADMAP.md Queue 1 item 7). `use_mesh` is
-accepted and means nothing on one card.
+remat, profiler traces, pretrained encoders, Orbax init checkpoints.
+`use_mesh` is accepted and means nothing on one card.
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ from cartseg_tpu_torch.data.pairing import (gather_pairs,
 from cartseg_tpu_torch.data.pipeline import Loader
 from cartseg_tpu_torch.device import resolve_device
 from cartseg_tpu_torch.losses.abl import bce_dice_abl
+from cartseg_tpu_torch.losses.boundary import composite_seg_loss
 from cartseg_tpu_torch.losses.region import (bce_dice_loss,
                                              bce_dice_per_sample,
                                              focal_dice_loss)
@@ -91,9 +92,8 @@ def resolve_loss(spec) -> Callable:
         def f(logits, masks, w):
             return focal_dice_loss(logits, masks, **kw), {}
     elif name == "boundary":
-        raise NotImplementedError(
-            "the boundary loss (losses/boundary.py composite_seg_loss) is "
-            "not ported yet (ROADMAP.md Queue 1 item 7)")
+        def f(logits, masks, w):
+            return composite_seg_loss(logits, masks, **kw), {}
     elif name == "bce_dice_abl":
         def f(logits, masks, w):
             return bce_dice_abl(logits, masks, **kw)

@@ -28,7 +28,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
      [6,256,32,32], the decoder's 16-channel top [6,16,512,512]),
      channels_last and contiguous, fp32 and bf16, (x, x) and (dy, x),
      within 1e-5 of the per-channel sum of |.| and the same bits on a
-     second call;
+     second call; the loss zoo's kernels at the path shapes: focal (loss
+     and gradient) at [6,512,512,1] and [20,224,224,1], mish / swish
+     forward and g * f' backward at [6,512,512,16] and [12288,2048]
+     within 2e-6 of max |plain|, hswish there bit for bit, soft-Dice's
+     sums at [6,512,512,1] for p = 1 and 2 within 1e-6 relative and the
+     same bits twice, the smoothed one-hot at [6,262144] C = 8 (ignore
+     255, int64 and int32 labels) bit for bit;
   4. the workloads through their CLI entry points, each with the launch
      counts set to 0 just before it and read just after:
      a. pseudo-labels (workloads/create_pseudo_labels.main) on a
@@ -82,6 +88,21 @@ Phases, in order; any failure raises and the exit code is non-zero:
         and the kernel lane's gradient no farther from the torch lane's
         float64 gradient, or from the torch lane's fp32 one, than twice
         the torch lane's own fp32 distance from float64 (relative L2);
+     f. the loss zoo through cartseg_tpu_torch.losses: every name it
+        gained (focal_loss_kernel, soft_dice_loss, smooth_one_hot, mish,
+        swish, hswish, lsr_cross_entropy_fused, the Taylor, OHEM,
+        Lovasz, large-margin, LayerNorm and SDF boundary losses) at the
+        path shapes, with a backward where it has a gradient; all nine
+        zoo counters, edt, lsr_fwd and lsr_bwd > 0; then the same calls
+        on the card against the CPU at [2,32,32] (rtol 1e-4, atol 1e-5;
+        integer outputs equal);
+     g. SDF boundary-loss training (workloads/train_with_boundary_loss.
+        main) on 4b's tree at the workload's CONFIG (effnet-b0 UNet, bs6,
+        512^2, bf16, ImageNet norm, train_512, BCE+Dice + 0.3 boundary,
+        encoder frozen, prf1 CSV) for --epochs 2 --device cuda: the CSV,
+        history, .pth, sidecar and .last.pth, the .pth loading into the
+        pseudo-labeller; edt launched at least 4 times a step, no other
+        kernel;
   5. timing with CUDA events: the pseudo-label program per bs64 batch,
      the train step at bs6@512^2 (device-resident batch, loader
      excluded) and the ABL loss's share of it, SAM's set_image and
@@ -94,7 +115,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
      the path's shapes, beside its bound (channel_sums: per launch at
      the stem, a layer3 BN and the decoder top, and over one step's 92
      calls, against torch.batch_norm_stats and
-     torch.batch_norm_backward_reduce).
+     torch.batch_norm_backward_reduce); the loss zoo's kernels at the
+     path shapes in device time (profiler, the L2 flushed before each
+     call) against their plain versions,
+     F.mish / F.silu / F.hardswish and ATen's mish/silu/hardswish
+     backward, and their bounds; the boundary workload's train step
+     against the same step with BCE+Dice alone, its busy share and its
+     4 edt launches.
 The line before the last holds the kernels' JSON record, the one before
 it the card's name and power limit, and the last line
 {"ok": true, "device": {...}}.
@@ -139,6 +166,17 @@ KERNELS = {
                       "cartseg_tpu/ops/pallas/flash_attention.py:232"),
     "channel_sums": ("cartseg_tpu_torch/ops/cuda/csrc/channel_sums.cu",
                      "cartseg_tpu/ops/pallas/channel_sums.py:39"),
+    "focal": ("cartseg_tpu_torch/ops/cuda/csrc/focal.cu",
+              "cartseg_tpu/ops/pallas/focal.py:40"),
+    "soft_dice": ("cartseg_tpu_torch/ops/cuda/csrc/soft_dice.cu",
+                  "cartseg_tpu/ops/pallas/soft_dice.py:27"),
+    "one_hot": ("cartseg_tpu_torch/ops/cuda/csrc/one_hot.cu",
+                "cartseg_tpu/ops/pallas/one_hot.py:21"),
+    **{f"{kind}_{d}": ("cartseg_tpu_torch/ops/cuda/csrc/activations.cu",
+                       f"cartseg_tpu/ops/pallas/activations.py:{line}")
+       for kind, lines in (("mish", (77, 82)), ("swish", (90, 95)),
+                           ("hswish", (101, 106)))
+       for d, line in zip(("fwd", "bwd"), lines)},
 }
 PSEUDO_KERNELS = ("cc", "reach", "median")
 TRAIN_KERNELS = ("edt", "lsr_fwd", "lsr_bwd")
@@ -169,6 +207,32 @@ FLASH_CASES = ((12, 64, 64, torch.float32), (12, 64, 64, torch.bfloat16),
                (2, 16, 32, torch.float32))
 SAM_FRAMES = ((1024, 1024),) * 3 + ((512, 512),)   # create_testset, hard
 SAM_GLOBAL_BLOCKS = 4
+# the loss zoo's kernels (cartseg_tpu_torch.losses) and their path shapes:
+# the trainers' logits and the focal-Dice trainer's (tools/
+# run_chip_parity.py:136-143), the smoothed one-hot's labels (:166-168),
+# the activations' NHWC feature map and flat matrix (:157-164)
+ACT_KINDS = ("mish", "swish", "hswish")
+ZOO_KERNELS = ("focal", "soft_dice", "one_hot") + tuple(
+    f"{k}_{d}" for k in ACT_KINDS for d in ("fwd", "bwd"))
+FOCAL_SHAPES = ((6, 512, 512, 1), (20, 224, 224, 1))
+DICE_SHAPE = (6, 512, 512, 1)
+ONE_HOT_SHAPE, ONE_HOT_C, ONE_HOT_IGNORE = (6, 262144), 8, 255
+ACT_SHAPES = ((6, 512, 512, 16), (12288, 2048))
+# kernel vs plain: focal, mish and swish within 2e-6 of the plain output's
+# max |value| (about 4 float32 ulps of it: nvcc's FMA contraction against
+# eager PyTorch's two roundings); soft-Dice's sums within 1e-6 relative
+# (non-negative fp32 terms summed in another order, about twenty adds
+# deep); one_hot and hswish bit for bit
+ELEM_TOL, DICE_TOL = 2e-6, 1e-6
+# floating-point operations an element, for the operations bound: the
+# transcendental functions (exp, log1p, tanh, pow) counted as one each
+ZOO_FLOPS = {"focal": 40, "soft_dice": 8, "one_hot": 0, "mish_fwd": 6,
+             "mish_bwd": 14, "swish_fwd": 4, "swish_bwd": 9,
+             "hswish_fwd": 5, "hswish_bwd": 5}
+# the public loss zoo on the card against the same calls on the CPU, at a
+# small size: values and gradients (rtol, atol); sums and sorts run in
+# another order
+ZOO_REF_TOL = (1e-4, 1e-5)
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s; dense FLOP/s
 # of fp32 outside the tensor cores and of bf16 on them
 HBM_BYTES_PER_S = 3.35e12
@@ -698,24 +762,37 @@ def _busy_share(fn, n: int) -> float:
     return busy / wall_us
 
 
-def device_ms(fn, n: int, match: str = "") -> float:
+def device_ms(fn, n: int, match: str = "", cold: bool = False) -> float:
     """Device time per call of fn: the summed durations of the kernels and
     copies the profiler records over n calls (those whose name contains
     `match`), over n, after one call unrecorded. Unlike CUDA events
     around a loop, it leaves out the gaps in which the card waits for
-    the host."""
+    the host. cold: flush the 50 MB L2 cache before every call (a 256 MB
+    buffer zeroed; its fill kernel is left out of the sum), as a caller
+    whose inputs come from device memory finds it; back to back, a
+    25.2M-element activation reads part of its 201 MB from the L2 the
+    previous call left and runs faster than the HBM bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    call = fn
+    if cold:
+        flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+
+        def call():
+            flush.zero_()
+            fn()
+
+    call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
-            fn()
+            call()
         torch.cuda.synchronize()
     total = sum(e.time_range.elapsed_us() for e in prof.events()
-                if e.device_type == DeviceType.CUDA and match in e.name)
+                if e.device_type == DeviceType.CUDA and match in e.name
+                and not (cold and "FillFunctor" in e.name))
     return total / n / 1e3
 
 
@@ -1827,6 +1904,480 @@ def phase_sam_train_timing(train: dict, dev, card: str) -> dict:
     return {"step_ms": step_ms, "plain_ms": plain_ms, "kernels": out}
 
 
+# ------------------------------------------------------------ the loss zoo
+
+def zoo_bound(name: str, n_bytes: int, n_elems: int) -> tuple:
+    """The larger of the bytes (each input read once, each output
+    written once) at the HBM rate and ZOO_FLOPS[name] float32 operations
+    an element at the CUDA-core peak."""
+    t_bytes, _ = bytes_bound(n_bytes)
+    t_ops = ZOO_FLOPS[name] * n_elems / PEAK_FLOPS[torch.float32] * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def elem_inputs(shape, dev, seed: int) -> tuple:
+    """Logits ~ 3 N(0,1) and {0,1} targets of `shape`, seeded."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(shape, generator=gen) * 3
+    y = (torch.rand(shape, generator=gen) > 0.5).float()
+    return x.to(dev), y.to(dev)
+
+
+def act_inputs(shape, dev, seed: int) -> tuple:
+    """An activation input ~ 3 N(0,1) and its upstream gradient ~ N(0,1)."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    return ((torch.randn(shape, generator=gen) * 3).to(dev),
+            torch.randn(shape, generator=gen).to(dev))
+
+
+def dice_inputs(dev) -> tuple:
+    """[6, 512*512] logits and blob-mask labels (the trainers' logits
+    flattened per sample); the last sample has no foreground."""
+    from cartseg_tpu_torch.utils.synthetic import blob_masks
+
+    B = DICE_SHAPE[0]
+    m = blob_masks(np.random.default_rng(SEED), DICE_SHAPE[:3], n=3)
+    m = torch.from_numpy(m.reshape(B, -1).astype(np.float32))
+    m[-1] = 0.0
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    x = torch.randn(m.shape, generator=gen) * 2 + (2 * m - 1) * 1.5
+    return x.to(dev), m.to(dev)
+
+
+def one_hot_labels(dev, dtype=torch.int64) -> torch.Tensor:
+    """[6,262144] labels in 0..7, every 7th the ignore index 255."""
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    lab = torch.randint(0, ONE_HOT_C, ONE_HOT_SHAPE, generator=gen)
+    lab.view(-1)[::7] = ONE_HOT_IGNORE
+    return lab.to(dtype).to(dev)
+
+
+def check_rel(name: str, got: torch.Tensor, want: torch.Tensor,
+              tol: float) -> float:
+    """Max abs error within tol of the plain output's max |value|."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {got.shape}/{got.dtype} vs "
+                             f"{want.shape}/{want.dtype}")
+    err = float((got - want).abs().max())
+    rel = err / float(want.abs().max())
+    if not rel <= tol:
+        raise AssertionError(f"{name}: max abs err {err} = {rel} of max "
+                             f"|plain| (tolerance {tol})")
+    log(f"  {name}: max abs err {err:.3e} = {rel:.3e} of max |plain| "
+        f"(tolerance {tol})")
+    return err
+
+
+def phase_compare_zoo(dev) -> dict:
+    """The loss zoo's kernels against their plain versions at the path
+    shapes: focal (loss and gradient) at [6,512,512,1] and [20,224,224,1];
+    soft-Dice's sums at [6,512,512,1] for p = 1 and 2, twice for the same
+    bits; the smoothed one-hot at [6,262144] C = 8, ignore 255, int64 and
+    int32 labels, bit for bit; each activation forward and g * f'
+    backward at [6,512,512,16] and [12288,2048] (hswish bit for bit).
+    Returns each kernel's largest absolute error."""
+    from cartseg_tpu_torch.ops.cuda.activations import (act_bwd,
+                                                        act_bwd_plain,
+                                                        act_fwd,
+                                                        act_fwd_plain)
+    from cartseg_tpu_torch.ops.cuda.focal import focal_fwd, focal_plain
+    from cartseg_tpu_torch.ops.cuda.one_hot import one_hot, one_hot_plain
+    from cartseg_tpu_torch.ops.cuda.soft_dice import (soft_dice_sums,
+                                                      soft_dice_sums_plain)
+
+    errs, e = {}, []
+    for i, shape in enumerate(FOCAL_SHAPES):
+        x, y = elem_inputs(shape, dev, SEED + i)
+        got, want = focal_fwd(x, y, 2.0, 0.25), focal_plain(x, y, 2.0, 0.25)
+        for what, a, b in zip(("loss", "grad"), got, want):
+            e.append(check_rel(f"focal {what} {list(shape)}", a, b,
+                               ELEM_TOL))
+    errs["focal"] = max(e)
+
+    x, y = dice_inputs(dev)
+    e = []
+    for pexp in (1.0, 2.0):
+        got, again = soft_dice_sums(x, y, pexp), soft_dice_sums(x, y, pexp)
+        want = soft_dice_sums_plain(x, y, pexp)
+        torch.cuda.synchronize()
+        for what, a, b, h in zip(("numer", "denor"), got, want, again):
+            err = (a - b).abs()
+            rel = float((err / b.abs().clamp(min=1e-30)).max())
+            if not bool((err <= DICE_TOL * b.abs()).all()) or \
+                    not torch.equal(a, h):
+                raise AssertionError(
+                    f"soft_dice p={pexp} {what}: max rel err {rel} "
+                    f"(tolerance {DICE_TOL}), same bits twice "
+                    f"{torch.equal(a, h)}")
+            e.append(float(err.max()))
+            log(f"  soft_dice p={pexp} {what} {list(DICE_SHAPE)}: max rel "
+                f"err {rel:.3e} (tolerance {DICE_TOL}); the same bits on a "
+                f"second call")
+    errs["soft_dice"] = max(e)
+
+    for dt in (torch.int64, torch.int32):
+        lab = one_hot_labels(dev, dt)
+        check_equal(f"one_hot {list(ONE_HOT_SHAPE)} C={ONE_HOT_C} {dt}",
+                    one_hot(lab, ONE_HOT_C, 0.1, ONE_HOT_IGNORE),
+                    one_hot_plain(lab, ONE_HOT_C, 0.1, ONE_HOT_IGNORE))
+    errs["one_hot"] = 0.0
+
+    for kind in ACT_KINDS:
+        ef, eb = [], []
+        for i, shape in enumerate(ACT_SHAPES):
+            x, g = act_inputs(shape, dev, SEED + i)
+            cases = ((ef, f"{kind} forward {list(shape)}", act_fwd(x, kind),
+                      act_fwd_plain(x, kind)),
+                     (eb, f"{kind} backward {list(shape)}",
+                      act_bwd(x, g, kind), act_bwd_plain(x, g, kind)))
+            for acc, name, got, want in cases:
+                acc.append(check_equal(name, got, want) if kind == "hswish"
+                           else check_rel(name, got, want, ELEM_TOL))
+            del x, g, cases
+        errs[f"{kind}_fwd"], errs[f"{kind}_bwd"] = max(ef), max(eb)
+    return errs
+
+
+def zoo_tensors(bhw, focal2, act2, dev, seed: int) -> dict:
+    """The loss zoo's inputs: logits x [B,H,W,1] and blob-mask targets y,
+    class logits z [B,H,W,8] and labels lab (every 7th ignored), an
+    activation input a [B,H,W,16] with LayerNorm's weight w and bias b,
+    and the second focal (x2, y2) and activation (a2) shapes."""
+    from cartseg_tpu_torch.utils.synthetic import blob_masks
+
+    B, H, W = bhw
+    m = blob_masks(np.random.default_rng(seed), bhw, n=3)
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    y = torch.from_numpy(m[..., None].astype(np.float32))
+    t = {"y": y,
+         "x": torch.randn(y.shape, generator=gen) * 2 + (2 * y - 1) * 1.5,
+         "z": torch.randn((B, H, W, ONE_HOT_C), generator=gen) * 2,
+         "lab": torch.randint(0, ONE_HOT_C, (B, H, W), generator=gen),
+         "a": torch.randn((B, H, W, 16), generator=gen) * 3,
+         "w": 1 + 0.1 * torch.randn(16, generator=gen),
+         "b": 0.1 * torch.randn(16, generator=gen),
+         "x2": torch.randn(focal2, generator=gen) * 3,
+         "y2": (torch.rand(focal2, generator=gen) > 0.5).float(),
+         "a2": torch.randn(act2, generator=gen) * 3}
+    t["lab"].view(-1)[::7] = ONE_HOT_IGNORE
+    return {k: v.to(dev) for k, v in t.items()}
+
+
+def zoo_calls() -> tuple:
+    """(name, the input whose gradient is taken or None, fn(tensors)) for
+    every name cartseg_tpu_torch.losses gained with the loss zoo."""
+    import cartseg_tpu_torch.losses as TL
+
+    C, ign = ONE_HOT_C, ONE_HOT_IGNORE
+    acts = tuple((f"{k} {w}", key, lambda t, k=k, key=key:
+                  getattr(TL, k)(t[key]))
+                 for k in ACT_KINDS for w, key in (("nhwc", "a"),
+                                                   ("flat", "a2")))
+    return (
+        ("focal_loss_kernel", "x", lambda t: TL.focal_loss_kernel(
+            t["x"], t["y"])),
+        ("focal_loss_kernel focal-Dice", "x2", lambda t:
+         TL.focal_loss_kernel(t["x2"], t["y2"])),
+        ("soft_dice_loss p=1", "x", lambda t: TL.soft_dice_loss(
+            t["x"], t["y"], 1.0)),
+        ("soft_dice_loss p=2", "x", lambda t: TL.soft_dice_loss(
+            t["x"], t["y"], 2.0)),
+        ("smooth_one_hot", None, lambda t: TL.smooth_one_hot(
+            t["lab"].reshape(t["lab"].shape[0], -1), C, 0.1, ign)),
+    ) + acts + (
+        ("lsr_cross_entropy_fused", "z", lambda t:
+         TL.lsr_cross_entropy_fused(t["z"], t["lab"], 0.1, ign)),
+        ("taylor_softmax", "z", lambda t: TL.taylor_softmax(t["z"], 2)),
+        ("log_taylor_softmax", "z", lambda t: TL.log_taylor_softmax(
+            t["z"], 2)),
+        ("taylor_cross_entropy", "z", lambda t: TL.taylor_cross_entropy(
+            t["z"], t["lab"], 2, 0.1, ign)),
+        ("ohem_labels", None, lambda t: TL.ohem_labels(
+            t["z"], t["lab"], 0.7, 16, ign)),
+        ("lovasz_softmax", "z", lambda t: TL.lovasz_softmax(
+            t["z"], t["lab"], ignore_index=ign)),
+        ("lovasz_hinge", "x", lambda t: TL.lovasz_hinge(
+            t["x"][..., 0], t["y"][..., 0])),
+        ("large_margin_softmax", "z", lambda t: TL.large_margin_softmax(
+            t["z"], t["lab"], 0.3, ign)),
+        ("layer_norm", "a", lambda t: TL.layer_norm(t["a"], t["w"],
+                                                    t["b"])),
+        ("signed_distance_map", None, lambda t: TL.signed_distance_map(
+            t["y"][0, ..., 0])),
+        ("symmetric_boundary_loss", "x", lambda t:
+         TL.symmetric_boundary_loss(t["x"], t["y"])),
+        ("composite_seg_loss", "x", lambda t: TL.composite_seg_loss(
+            t["x"], t["y"])),
+    )
+
+
+def run_zoo(t: dict, calls) -> dict:
+    """name -> (output, gradient of sum(output^2) w.r.t. its input, or
+    None) for each call on the tensors t."""
+    res = {}
+    for name, key, fn in calls:
+        ts = dict(t)
+        if key is not None:
+            ts[key] = t[key].detach().clone().requires_grad_(True)
+        out = fn(ts)
+        grad = None
+        if key is not None:
+            (out.float() ** 2).sum().backward()
+            grad = ts[key].grad
+        res[name] = (out.detach(), grad)
+    return res
+
+
+def phase_loss_zoo(dev) -> dict:
+    """The loss zoo through cartseg_tpu_torch.losses on the card: every
+    name the zoo gained, at the path shapes, with a backward where it has
+    a gradient; the launch counts set to 0 just before and read just
+    after, and every zoo kernel (and the EDT and LSR kernels its boundary
+    and LSR losses reach) launched. Then the same calls on the card
+    against the CPU (the plain versions) at a small size."""
+    from cartseg_tpu_torch.ops.cuda import build
+
+    calls = zoo_calls()
+    t = zoo_tensors((TRAIN_BS, S, S), FOCAL_SHAPES[1], ACT_SHAPES[1], dev,
+                    SEED)
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run_zoo(t, calls)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    for name, (out, grad) in res.items():
+        bad = [u for u in (out, grad) if u is not None and
+               u.is_floating_point() and not bool(torch.isfinite(u).all())]
+        if bad:
+            raise AssertionError(f"{name}: non-finite output or gradient")
+    log(f"  {len(res)} calls at the path shapes in {wall:.2f} s wall: "
+        + "; ".join(f"{n} {list(o.shape)}{' + grad' if g is not None else ''}"
+                    for n, (o, g) in res.items()))
+    log(f"  launches {launches}")
+    missing = [k for k in ZOO_KERNELS + ("edt", "lsr_fwd", "lsr_bwd")
+               if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"not launched by the loss zoo: {missing}")
+    del t, res
+
+    small = zoo_tensors((2, 32, 32), (4, 32, 32, 1), (64, 128), "cpu",
+                        SEED + 7)
+    want = run_zoo(small, calls)
+    got = run_zoo({k: v.to(dev) for k, v in small.items()}, calls)
+    rtol, atol = ZOO_REF_TOL
+    worst = 0.0
+    for name, (o, g) in got.items():
+        for a, b in ((o, want[name][0]), (g, want[name][1])):
+            if a is None:
+                continue
+            a = a.cpu()
+            if not a.is_floating_point():
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{name}: card != CPU")
+                continue
+            torch.testing.assert_close(a, b, rtol=rtol, atol=atol,
+                                       msg=lambda m, n=name: f"{n}: {m}")
+            worst = max(worst, float(((a - b).abs() / (atol + rtol * b.abs())
+                                      ).max()))
+    log(f"  the zoo on the card against the CPU at [2,32,32]: {len(got)} "
+        f"calls, values and gradients within rtol {rtol}, atol {atol} "
+        f"(worst {worst:.3f} of the bound), integer outputs equal")
+    build.reset_launch_counts()
+    return launches
+
+
+def phase_boundary_workload(tmp: Path, dev, ir: Path, mr: Path) -> dict:
+    """workloads/train_with_boundary_loss through its CLI at its CONFIG
+    (effnet-b0 UNet, bs6, 512^2, bf16, ImageNet norm, train_512, BCE+Dice
+    + 0.3 SDF boundary loss, encoder frozen), 2 epochs on 4b's tree: the
+    `prf1` CSV, history, .pth, sidecar and .last.pth, the .pth loading
+    into the pseudo-labeller; edt launched at least 4 times a step (the
+    GT's and the prediction's SDF, inside and outside) and no other
+    kernel."""
+    from cartseg_tpu_torch.infer.engine import load_member
+    from cartseg_tpu_torch.ops.cuda import build
+    from cartseg_tpu_torch.train.engine import SCHEMAS
+    from cartseg_tpu_torch.workloads import train_with_boundary_loss as cli
+
+    out = tmp / "run_boundary"
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = cli.main(["--images_root", str(ir), "--masks_root", str(mr),
+                       "--out_dir", str(out), "--epochs", "2",
+                       "--device", "cuda"], log=lambda m: log(f"    {m}"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    steps = result["state"].step
+    others = {k: v for k, v in launches.items() if k != "edt" and v}
+    log(f"  boundary workload: {steps} steps, 2 epochs in {wall:.1f} s wall "
+        f"(init, PNG decode, val and the sweep included); edt launches "
+        f"{launches['edt']} ({launches['edt'] / max(steps, 1):.2f} a train "
+        f"step, validation included); launches {launches}")
+    if steps <= 0 or launches["edt"] < 4 * steps or others:
+        raise AssertionError(f"boundary workload: {steps} steps, edt "
+                             f"{launches['edt']}, others {others}")
+    rows = check_train_outputs(out, SCHEMAS["prf1"])
+    if any(float(r[1]) != 0.0 for r in rows[1:]):
+        raise AssertionError(f"the encoder was not frozen: {rows[1:]}")
+    hist = json.loads((out / "history.json").read_text())
+    member = load_member(out / "model.pth", device=dev)
+    if abs(member.threshold - result["threshold"]) > 1e-9:
+        raise AssertionError("the .pth did not load with the sweep's "
+                             "threshold")
+    log(f"  boundary outputs: prf1 CSV {rows[1:]}, history "
+        f"({len(hist)} epochs), .pth + sidecar (threshold "
+        f"{member.threshold:.2f}) + .last.pth; the .pth loads into the "
+        "pseudo-labeller")
+    build.reset_launch_counts()
+    return {"launches": launches, "steps": steps}
+
+
+def phase_zoo_timing(dev, card: str) -> dict:
+    """Each zoo kernel at the path shapes: device time (the profiler's
+    kernel durations, these calls being short) with the L2 flushed before
+    each call, against its plain version and, where one PyTorch call
+    computes the same function, that call; the kernel's device time back
+    to back (warm L2) and its wall time per call (CUDA events); its
+    bound. Returns name -> (ms, plain ms, library ms or None, bound ms,
+    bound_by), cold, at the first path shape."""
+    import torch.nn.functional as F
+
+    from cartseg_tpu_torch.ops.cuda import build
+    from cartseg_tpu_torch.ops.cuda.activations import (act_bwd,
+                                                        act_bwd_plain,
+                                                        act_fwd,
+                                                        act_fwd_plain)
+    from cartseg_tpu_torch.ops.cuda.focal import focal_fwd, focal_plain
+    from cartseg_tpu_torch.ops.cuda.one_hot import one_hot, one_hot_plain
+    from cartseg_tpu_torch.ops.cuda.soft_dice import (soft_dice_sums,
+                                                      soft_dice_sums_plain)
+
+    rows = {}
+
+    def measure(name, label, kern, plain, match, bound, lib=None,
+                lib_name=""):
+        k1 = device_ms(kern, 20, match, cold=True)
+        p1 = device_ms(plain, 5, cold=True)
+        k2 = device_ms(kern, 20, match, cold=True)
+        ld = device_ms(lib, 20, cold=True) if lib is not None else None
+        kw = device_ms(kern, 20, match)
+        wk, wp = cuda_ms(kern, 20), cuda_ms(plain, 5)
+        ms = (k1 + k2) / 2
+        lib_txt = (f", {lib_name} {ld:.5f} ms" if lib is not None
+                   else ", no single PyTorch call")
+        log(f"  {name} {label}: device time (profiler, L2 flushed) kernel "
+            f"{k1:.5f}/{k2:.5f} ms, plain {p1:.5f} ms{lib_txt}; kernel back "
+            f"to back {kw:.5f} ms; wall per call (CUDA events) kernel "
+            f"{wk:.5f} ms, plain {wp:.5f} ms; bound {bound[0]:.5f} ms "
+            f"({bound[1]}), kernel at {bound[0] / ms:.3f} of it [{card}]")
+        rows.setdefault(name, (ms, p1, ld, bound[0], bound[1]))
+
+    for i, shape in enumerate(FOCAL_SHAPES):
+        x, y = elem_inputs(shape, dev, SEED + i)
+        measure("focal", str(list(shape)),
+                lambda: focal_fwd(x, y, 2.0, 0.25),
+                lambda: focal_plain(x, y, 2.0, 0.25), "focal",
+                zoo_bound("focal", 4 * nbytes(x), x.numel()))
+    x, y = dice_inputs(dev)
+    for pexp in (1.0, 2.0):
+        measure("soft_dice", f"{list(DICE_SHAPE)} p={pexp}",
+                lambda: soft_dice_sums(x, y, pexp),
+                lambda: soft_dice_sums_plain(x, y, pexp), "dice_",
+                zoo_bound("soft_dice", nbytes(x, y) + 2 * x.shape[0] * 4,
+                          x.numel()))
+    lab = one_hot_labels(dev)
+    out = one_hot(lab, ONE_HOT_C, 0.1, ONE_HOT_IGNORE)
+    measure("one_hot", f"{list(ONE_HOT_SHAPE)} C={ONE_HOT_C} int64",
+            lambda: one_hot(lab, ONE_HOT_C, 0.1, ONE_HOT_IGNORE),
+            lambda: one_hot_plain(lab, ONE_HOT_C, 0.1, ONE_HOT_IGNORE),
+            "one_hot", zoo_bound("one_hot", nbytes(lab, out), lab.numel()))
+    del x, y, lab, out
+    libs = {"mish": (F.mish, torch.ops.aten.mish_backward, "mish"),
+            "swish": (F.silu, torch.ops.aten.silu_backward, "silu"),
+            "hswish": (F.hardswish, torch.ops.aten.hardswish_backward,
+                       "hardswish")}
+    for kind in ACT_KINDS:
+        fwd_lib, bwd_lib, aten = libs[kind]
+        for i, shape in enumerate(ACT_SHAPES):
+            x, g = act_inputs(shape, dev, SEED + i)
+            n = x.numel()
+            measure(f"{kind}_fwd", str(list(shape)),
+                    lambda: act_fwd(x, kind), lambda: act_fwd_plain(x, kind),
+                    "act_fwd", zoo_bound(f"{kind}_fwd", 2 * nbytes(x), n),
+                    lambda: fwd_lib(x), f"F.{aten}")
+            measure(f"{kind}_bwd", str(list(shape)),
+                    lambda: act_bwd(x, g, kind),
+                    lambda: act_bwd_plain(x, g, kind), "act_bwd",
+                    zoo_bound(f"{kind}_bwd", 3 * nbytes(x), n),
+                    lambda: bwd_lib(g, x), f"aten.{aten}_backward")
+            xr = x.detach().requires_grad_(True)
+
+            def lib_both():
+                fwd_lib(xr).backward(g)
+
+            log(f"  {kind} {list(shape)}: F.{aten} forward + "
+                f"backward under autograd, device time (L2 flushed) "
+                f"{device_ms(lib_both, 10, cold=True):.5f} ms [{card}]")
+            del x, g, xr
+    build.reset_launch_counts()
+    return rows
+
+
+def phase_boundary_timing(dev, card: str) -> dict:
+    """The boundary workload's train step at its CONFIG (bs6@512^2,
+    device-resident batch, the freeze phase's learning rates) against the
+    same step with BCE+Dice alone, in alternating pairs; its device busy
+    share and its edt launches."""
+    from cartseg_tpu_torch.ops.cuda import build
+    from cartseg_tpu_torch.train import LossSpec, Trainer
+    from cartseg_tpu_torch.train.config import apply_cli_overrides
+    from cartseg_tpu_torch.utils.synthetic import blob_masks, frame
+    from cartseg_tpu_torch.workloads.train_with_boundary_loss import CONFIG
+
+    r = np.random.default_rng(SEED)
+    imgs = torch.from_numpy(np.stack([frame(r, (S, S))
+                                      for _ in range(TRAIN_BS)])).to(dev)
+    masks = torch.from_numpy(blob_masks(r, (TRAIN_BS, S, S), n=3)[..., None]
+                             .astype(np.float32)).to(dev)
+    sw = torch.ones(TRAIN_BS, device=dev)
+    cfg = apply_cli_overrides(CONFIG, ["--device", "cuda"])
+    steps = {}
+    for name, loss in (("boundary", CONFIG.loss),
+                       ("bce_dice", LossSpec("bce_dice",
+                                             {"bce_weight": 0.5}))):
+        tr = Trainer(cfg.with_overrides(loss=loss))
+        st = tr.init_state()
+        gids = tr.group_ids(st)
+        steps[name] = (lambda tr=tr, st=st, gids=gids: tr.train_step(
+            st, imgs, masks, sw, [0.0, 1e-4, 1e-4], [0.0, 1.0, 1.0], gids))
+    for fn in steps.values():
+        cuda_ms(fn, 3)                            # warm-up, cuDNN autotune
+    a1 = cuda_ms(steps["boundary"], 20)
+    b1 = cuda_ms(steps["bce_dice"], 20)
+    b2 = cuda_ms(steps["bce_dice"], 20)
+    a2 = cuda_ms(steps["boundary"], 20)
+    busy = _busy_share(steps["boundary"], 5)
+    build.reset_launch_counts()
+    steps["boundary"]()
+    torch.cuda.synchronize()
+    edt_per_step = build.LAUNCHES["edt"]
+    step_ms, bce_ms = (a1 + a2) / 2, (b1 + b2) / 2
+    log(f"  boundary train step bs{TRAIN_BS}@{S}^2 (effnet-b0 UNet, bf16 "
+        f"autocast, train_512, BCE+Dice + 0.3 SDF boundary, encoder frozen, "
+        f"AdamW): {a1:.3f}/{a2:.3f} ms, {TRAIN_BS * 1000.0 / step_ms:.2f} "
+        f"img/s; the same step with BCE+Dice alone {b1:.3f}/{b2:.3f} ms; "
+        f"boundary share {(step_ms - bce_ms) / step_ms:.4f}; device busy "
+        f"share {busy:.4f}; edt launches a step {edt_per_step} [{card}]")
+    if edt_per_step != 4:
+        raise AssertionError(f"{edt_per_step} edt launches in a boundary "
+                             "step, want 4")
+    build.reset_launch_counts()
+    return {"step_ms": step_ms, "bce_ms": bce_ms, "busy": busy}
+
+
 def main() -> int:
     from cartseg_tpu_torch.device import require_cuda
 
@@ -1862,6 +2413,7 @@ def main() -> int:
         bwd_errs = phase_compare_flash_bwd(dev)
         errs.update(bwd_errs[FLASH_CASES[1]])
         errs["channel_sums"] = phase_compare_channel_sums(dev)
+        errs.update(phase_compare_zoo(dev))
 
         log("phase 4a: pseudo-label workload")
         launches, ckpts = phase_workload(tmp, dev)
@@ -1884,12 +2436,21 @@ def main() -> int:
         bce_runs = phase_bce_workload(tmp, dev, ir, mr)
         phase_bce_reference(dev)
 
+        log("phase 4f: the loss zoo through cartseg_tpu_torch.losses")
+        zoo_launches = phase_loss_zoo(dev)
+
+        log("phase 4g: SDF boundary-loss training workload "
+            "(train_with_boundary_loss)")
+        phase_boundary_workload(tmp, dev, ir, mr)
+
         log("phase 5: timing")
         timing = phase_timing(ckpts, frames, dev, card)
         train_timing = phase_train_timing(dev, card, hist)
         sam_timing = phase_sam_timing(pred, sam_frames, dev, card)
         sam_train_timing = phase_sam_train_timing(sam_train, dev, card)
         bce_timing = phase_bce_timing(dev, card)
+        zoo_timing = phase_zoo_timing(dev, card)
+        phase_boundary_timing(dev, card)
 
     launches.update({k: train_launches[k] for k in TRAIN_KERNELS})
     launches.update({k: sam_launches[k] for k in SAM_KERNELS})
@@ -1913,6 +2474,12 @@ def main() -> int:
     ms, plain, lib, b, by = bce_timing
     times["channel_sums"] = (ms, plain)
     bounds["channel_sums"], library["channel_sums"] = (b, by), lib
+    # the loss zoo's kernels: phase 4f's counts; device times (profiler) at
+    # the first path shape of each
+    for k in ZOO_KERNELS:
+        launches[k] = zoo_launches[k]
+        ms, plain, lib, b, by = zoo_timing[k]
+        times[k], bounds[k], library[k] = (ms, plain), (b, by), lib
     record = {"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], "max_abs_err": errs[k],

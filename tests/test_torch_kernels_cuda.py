@@ -25,6 +25,16 @@ The channel-sums kernel against `channel_sums_plain`: 1e-5 of sum |a|
 and of sum |a*b| per channel (fp32 accumulation in another order; bf16
 inputs are widened exactly on both sides), and the same bits on a
 second run (fixed-order partial sums, no atomics).
+
+The loss-zoo kernels against their plain versions: the smoothed one-hot
+and hswish (forward and backward) bit for bit (selects, and hswish's
+add, multiplies and float32(1/6) in the plain version's order); focal
+(loss and gradient), mish and swish (forward, and g * f' backward)
+within 2e-6 of the plain output's max |value|, about 4 float32 ulps of
+it: both use IEEE expf/log1pf/tanhf/powf, but nvcc contracts a*b+c into
+FMAs where eager PyTorch rounds twice; soft-Dice's per-sample sums
+within 1e-6 relative (fp32 sums of non-negative terms in another order,
+about twenty additions deep), and the same bits on a second run.
 """
 
 import numpy as np
@@ -43,6 +53,12 @@ from cartseg_tpu_torch.ops.cuda.flash_attention import (
 from cartseg_tpu_torch.ops.cuda.lsr import (lsr_bwd, lsr_bwd_plain, lsr_fwd,
                                             lsr_fwd_plain)
 from cartseg_tpu_torch.ops.cuda.median import median_rows, median_rows_plain
+from cartseg_tpu_torch.ops.cuda.activations import (act_bwd, act_bwd_plain,
+                                                    act_fwd, act_fwd_plain)
+from cartseg_tpu_torch.ops.cuda.focal import focal_fwd, focal_plain
+from cartseg_tpu_torch.ops.cuda.one_hot import one_hot, one_hot_plain
+from cartseg_tpu_torch.ops.cuda.soft_dice import (soft_dice_sums,
+                                                  soft_dice_sums_plain)
 from cartseg_tpu_torch.utils.synthetic import (blob_masks, ring_cuts_mask,
                                                spiral_mask)
 from torch_port_helpers import cuda_device, sam_official_state_dict  # noqa: F401
@@ -218,10 +234,25 @@ def test_launch_counters_count_kernel_launches_only(cuda_device):
     a = torch.ones((2, 3, 4, 5))
     channel_sums(a, a)                            # CPU: plain version
     channel_sums(a.to(cuda_device), a.to(cuda_device))
+    v = torch.ones((2, 8))
+    focal_fwd(v, v, 2.0, 0.25)                    # CPU: plain version
+    soft_dice_sums(v, v, 1.0)
+    one_hot(v.long(), 8, 0.1, 255)
+    act_fwd(v, "mish")
+    vc = v.to(cuda_device)
+    focal_fwd(vc, vc, 2.0, 0.25)
+    soft_dice_sums(vc, vc, 1.0)
+    one_hot(vc.long(), 8, 0.1, 255)
+    for kind in ("mish", "swish", "hswish"):
+        act_fwd(vc, kind)
+        act_bwd(vc, vc, kind)
     assert build.LAUNCHES == {"cc": 1, "reach": 1, "median": 1, "edt": 1,
                               "lsr_fwd": 1, "lsr_bwd": 1, "flash_fwd": 1,
                               "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
-                              "channel_sums": 1}
+                              "channel_sums": 1, "focal": 1, "soft_dice": 1,
+                              "one_hot": 1, "mish_fwd": 1, "mish_bwd": 1,
+                              "swish_fwd": 1, "swish_bwd": 1,
+                              "hswish_fwd": 1, "hswish_bwd": 1}
     build.reset_launch_counts()
 
 
@@ -536,4 +567,221 @@ def test_kernel_lane_bn_on_the_card_matches_the_torch_lane(cuda_device,
         tol = (1e-4 if dtype == torch.float32 else
                0.05 if i < 2 else 1e-3)
         torch.testing.assert_close(a, b, rtol=tol, atol=tol)
+    build.reset_launch_counts()
+
+
+# ------------------------------------------------------------ loss zoo
+
+ELEM_TOL = 2e-6      # of the plain output's max |value|
+DICE_TOL = 1e-6      # relative, per sample
+
+
+def _within(name, got, want, tol=ELEM_TOL):
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype, name
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    assert err <= tol * scale, (name, err, scale)
+
+
+def _focal_inputs(shape, dev, seed=0):
+    """3 N(0,1) logits and {0,1} targets; the first elements are edges:
+    y == p (x = 0, y = 0.5; x = 30, y = 1), saturated logits, both
+    branches of the log sigmoid."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(shape, generator=gen) * 3
+    y = (torch.rand(shape, generator=gen) > 0.5).float()
+    edges = [(0.0, 0.5), (30.0, 1.0), (-30.0, 0.0), (-30.0, 1.0),
+             (0.0, 1.0), (-1e-8, 0.0), (20.0, 0.0), (-100.0, 1.0)]
+    xf, yf = x.view(-1), y.view(-1)
+    for k, (xv, yv) in enumerate(edges[:xf.numel()]):
+        xf[k], yf[k] = xv, yv
+    return x.to(dev), y.to(dev)
+
+
+@pytest.mark.parametrize("gamma,alpha", [(2.0, 0.25), (1.5, 0.5)])
+@pytest.mark.parametrize("shape", [(6, 64, 64, 1), (3, 37, 1), (5,)])
+def test_focal_kernel_within_tolerance_of_plain(cuda_device, shape, gamma,
+                                                alpha):
+    x, y = _focal_inputs(shape, cuda_device)
+    loss, grad = focal_fwd(x, y, gamma, alpha)
+    want = focal_plain(x, y, gamma, alpha)
+    _within("focal loss", loss, want[0])
+    _within("focal grad", grad, want[1])
+    assert torch.isfinite(loss).all() and torch.isfinite(grad).all()
+    assert float(loss.view(-1)[0]) == 0.0 and float(grad.view(-1)[0]) == 0.0
+
+
+def test_focal_kernel_unaligned_and_empty(cuda_device):
+    x, y = _focal_inputs((4099,), cuda_device)
+    xs, ys = x[1:], y[1:]                       # 4-byte offset: scalar path
+    loss, grad = focal_fwd(xs, ys, 2.0, 0.25)
+    want = focal_plain(xs, ys, 2.0, 0.25)
+    _within("focal loss", loss, want[0])
+    _within("focal grad", grad, want[1])
+    build.reset_launch_counts()
+    e = torch.empty((0, 3), device=cuda_device)
+    loss, grad = focal_fwd(e, e, 2.0, 0.25)
+    assert loss.shape == grad.shape == (0, 3)
+    assert build.LAUNCHES["focal"] == 0
+
+
+@pytest.mark.parametrize("pexp", [1.0, 2.0, 1.5])
+@pytest.mark.parametrize("B,M", [(6, 4096), (3, 1001), (2, 262144), (1, 1)])
+def test_soft_dice_kernel_within_tolerance_of_plain(cuda_device, B, M, pexp):
+    """Sample 0 has no foreground (its numer is 0 in both); the same bits
+    on a second call."""
+    gen = torch.Generator(device="cpu").manual_seed(M)
+    x = (torch.randn((B, M), generator=gen) * 2).to(cuda_device)
+    y = (torch.rand((B, M), generator=gen) > 0.6).float().to(cuda_device)
+    y[0] = 0.0
+    numer, denor = soft_dice_sums(x, y, pexp)
+    again = soft_dice_sums(x, y, pexp)
+    want = soft_dice_sums_plain(x, y, pexp)
+    torch.cuda.synchronize()
+    for got, w, h in zip((numer, denor), want, again):
+        assert got.shape == (B,) and got.dtype == torch.float32
+        assert bool(((got - w).abs() <= DICE_TOL * w.abs()).all()), (got, w)
+        assert torch.equal(got, h)
+    assert float(numer[0]) == 0.0
+
+
+def test_soft_dice_kernel_unaligned_and_empty(cuda_device):
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    x = torch.randn((2, 4097), generator=gen).to(cuda_device)
+    y = (torch.rand((2, 4097), generator=gen) > 0.5).float().to(cuda_device)
+    xs = x.view(-1)[1:8193].view(2, 4096)       # 4-byte offset
+    ys = y.view(-1)[1:8193].view(2, 4096)
+    for got, w in zip(soft_dice_sums(xs, ys, 2.0),
+                      soft_dice_sums_plain(xs, ys, 2.0)):
+        torch.cuda.synchronize()
+        assert bool(((got - w).abs() <= DICE_TOL * w.abs()).all())
+    build.reset_launch_counts()
+    n, d = soft_dice_sums(x[:, :0].contiguous(), y[:, :0].contiguous(), 1.0)
+    assert n.shape == d.shape == (2,) and float(n.abs().sum()) == 0.0
+    assert build.LAUNCHES["soft_dice"] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("C,lb_smooth,ignore", [(8, 0.2, 255), (8, 0.1, -100),
+                                                (5, 0.3, 255), (1, 0.0, 255)])
+def test_one_hot_kernel_equals_plain(cuda_device, dtype, C, lb_smooth,
+                                     ignore):
+    """Ignored rows, labels outside [0, C) and an empty batch."""
+    gen = torch.Generator(device="cpu").manual_seed(C)
+    lab = torch.randint(0, C, (6, 4099), generator=gen).to(dtype)
+    lab[:, ::7] = ignore
+    lab[0, 1] = C
+    lab[0, 2] = -1
+    lab = lab.to(cuda_device)
+    got = one_hot(lab, C, lb_smooth, ignore)
+    torch.cuda.synchronize()
+    assert got.shape == (6, 4099, C) and got.dtype == torch.float32
+    assert torch.equal(got, one_hot_plain(lab, C, lb_smooth, ignore))
+    assert bool((got[:, ::7] == 0).all())
+    assert one_hot(lab[:0], C, lb_smooth, ignore).shape == (0, 4099, C)
+
+
+def _act_inputs(shape, dev, seed=2):
+    """5 N(0,1) values, led by hswish's breakpoints -3 and 3 and their
+    float32 neighbours, mish's guard at 20 and its neighbours, and large
+    magnitudes; a seeded upstream gradient."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(shape, generator=gen) * 5
+    edges = torch.tensor([-3.0, 3.0, -2.9999998, -3.0000002, 2.9999998,
+                          3.0000002, 20.0, 19.999998, 20.000002, 0.0, -20.0,
+                          25.0, -100.0, 100.0])
+    x.view(-1)[:edges.numel()] = edges[:x.numel()]
+    return x.to(dev), torch.randn(shape, generator=gen).to(dev)
+
+
+@pytest.mark.parametrize("shape", [(6, 64, 64, 16), (1000003,), (12, 2048)])
+@pytest.mark.parametrize("kind", ["mish", "swish", "hswish"])
+def test_activation_kernels_against_plain(cuda_device, kind, shape):
+    x, g = _act_inputs(shape, cuda_device)
+    fwd, bwd = act_fwd(x, kind), act_bwd(x, g, kind)
+    want_f, want_b = act_fwd_plain(x, kind), act_bwd_plain(x, g, kind)
+    torch.cuda.synchronize()
+    if kind == "hswish":
+        assert torch.equal(fwd, want_f) and torch.equal(bwd, want_b)
+        # f' at -3, 3, -3 + ulp, -3 - ulp, 3 - ulp, 3 + ulp: <= and >=
+        # decide the breakpoints
+        d = act_bwd(x, torch.ones_like(x), kind).view(-1)[:6].tolist()
+        assert d[0] == 0.0 and d[1] == 1.0 and d[3] == 0.0 and d[5] == 1.0
+        assert abs(d[2] + 0.5) < 1e-6 and abs(d[4] - 1.5) < 1e-6
+    else:
+        _within(f"{kind} forward", fwd, want_f)
+        _within(f"{kind} backward", bwd, want_b)
+
+
+@pytest.mark.parametrize("kind", ["mish", "swish", "hswish"])
+def test_activation_kernels_unaligned(cuda_device, kind):
+    x, g = _act_inputs((4103,), cuda_device)
+    xs, gs = x[1:], g[1:]
+    _within(f"{kind} forward", act_fwd(xs, kind), act_fwd_plain(xs, kind))
+    _within(f"{kind} backward", act_bwd(xs, gs, kind),
+            act_bwd_plain(xs, gs, kind))
+
+
+def test_zoo_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    x = torch.zeros((8, 4), device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        focal_fwd(x.T, x.T, 2.0, 0.25)
+    with pytest.raises(TypeError, match="float32"):
+        focal_fwd(x.double(), x.double(), 2.0, 0.25)
+    with pytest.raises(ValueError, match="contiguous"):
+        soft_dice_sums(x.T, x.T, 1.0)
+    with pytest.raises(ValueError):
+        soft_dice_sums(x, x.cpu(), 1.0)
+    with pytest.raises(TypeError, match="int32 or int64"):
+        one_hot(x.to(torch.uint8), 8, 0.1, 255)
+    with pytest.raises(ValueError, match="contiguous"):
+        act_fwd(x.T, "mish")
+    with pytest.raises(ValueError, match="unknown activation"):
+        act_fwd(x, "gelu")
+    with pytest.raises(TypeError, match="float32"):
+        act_bwd(x, x.half(), "swish")
+
+
+def test_loss_zoo_on_the_card_launches_the_kernels(cuda_device):
+    """The public losses on CUDA tensors launch their kernels, and their
+    values and gradients agree with the same calls on the CPU."""
+    import cartseg_tpu_torch.losses as TL
+
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    x = torch.randn((2, 16, 16, 1), generator=gen) * 2
+    y = (torch.rand((2, 16, 16, 1), generator=gen) > 0.5).float()
+    z = torch.randn((2, 16, 16, 8), generator=gen) * 2
+    lab = torch.randint(0, 8, (2, 16, 16), generator=gen)
+    lab[0, :2] = 255
+    calls = {
+        "focal_loss_kernel": lambda a, t, *_: TL.focal_loss_kernel(a, t),
+        "soft_dice_loss": lambda a, t, *_: TL.soft_dice_loss(a, t, 2.0),
+        "mish": lambda a, *_: TL.mish(a),
+        "swish": lambda a, *_: TL.swish(a),
+        "hswish": lambda a, *_: TL.hswish(a),
+        "taylor_cross_entropy": lambda _a, _t, c, lb: TL.taylor_cross_entropy(
+            c, lb, 2, 0.1, 255),
+        "lsr_cross_entropy_fused": lambda _a, _t, c, lb:
+            TL.lsr_cross_entropy_fused(c, lb, 0.1, 255),
+    }
+    build.reset_launch_counts()
+    for name, fn in calls.items():
+        res = {}
+        for dev in ("cpu", cuda_device):
+            a = x.to(dev).clone().requires_grad_(True)
+            c = z.to(dev).clone().requires_grad_(True)
+            out = fn(a, y.to(dev), c, lab.to(dev))
+            out.sum().backward()
+            grad = a.grad if a.grad is not None else c.grad
+            res[str(dev)] = (out.detach().cpu(), grad.cpu())
+        (o1, g1), (o2, g2) = res.values()
+        torch.testing.assert_close(o2, o1, rtol=1e-5, atol=1e-5, msg=name)
+        torch.testing.assert_close(g2, g1, rtol=1e-5, atol=1e-5, msg=name)
+    assert torch.equal(TL.smooth_one_hot(lab.to(cuda_device), 8, 0.1, 255).cpu(),
+                       TL.smooth_one_hot(lab, 8, 0.1, 255))
+    for k in ("focal", "soft_dice", "one_hot", "mish_fwd", "mish_bwd",
+              "swish_fwd", "swish_bwd", "hswish_fwd", "hswish_bwd",
+              "lsr_fwd", "lsr_bwd"):
+        assert build.LAUNCHES[k] > 0, k
     build.reset_launch_counts()
