@@ -15,10 +15,16 @@
 //   flash_bwd_dkv: dv = P^T dO,  dk = scale * dS^T Q
 // Neither P nor dS ((S, S) each) is written to device memory: each kernel
 // rebuilds its 64x64 tiles of them from Q, K, V, dO and the bias factors.
-// Products, exp and sums run in fp32 whatever the input type; the
-// outputs take the inputs' type.
 //
-// Design (simple first, as the forward): 256 threads per block; thread
+// Two routes, chosen by the inputs' type in the C entry points below:
+// - float32, this file: the exactness lane. Products, exp and sums run in
+//   fp32 on the CUDA cores (TF32 would not keep the flash lane within
+//   1e-4 of the plain lane), outputs in fp32.
+// - bfloat16: flash_relpos_bwd_tc.cu, wgmma on the tensor cores, P and dS
+//   rounded to bf16 as the second products' operands.
+//
+// Design of the float32 route (simple first, as the forward): 256 threads
+// per block; thread
 // (ty, tx) of the 16x16 grid holds a 4x4 register tile of the logits,
 // fed with float4 reads from padded shared-memory rows.
 // - flash_bwd_dq: one block per (bnh, 64 query rows), streaming 64-key
@@ -45,9 +51,8 @@
 // 2*12*4096^2*64 = 25.8 GFLOP; dq needs 3 (q k^T, dO v^T, dS K) and dkv 4
 // (q k^T, dO v^T, P^T dO, dS^T Q): 1.15 and 1.54 ms at the 67 TFLOP/s fp32
 // CUDA-core peak, against ~0.06 ms of fp32 memory traffic. The products
-// run as fp32 FMAs on the CUDA cores; tensor cores (mma/wgmma), TMA and
-// more than one block per SM (the tiles take 140-157 KB of shared memory
-// at g = 64) are later work.
+// run as fp32 FMAs on the CUDA cores, one block an SM (the fp32 tiles take
+// 140-157 KB of shared memory at g = 64).
 
 #include <type_traits>
 
@@ -420,15 +425,13 @@ flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// calls f(T{}, HD) for the inputs' type and head_dim
+// calls f(float{}, HD) for the head_dim: the float32 route
 template <typename F>
-int dispatch(int hd, int bf16, F f) {
+int dispatch(int hd, F f) {
   using H32 = std::integral_constant<int, 32>;
   using H64 = std::integral_constant<int, 64>;
-  if (hd == 64 && !bf16) return f(float{}, H64{});
-  if (hd == 64 && bf16) return f(__nv_bfloat16{}, H64{});
-  if (hd == 32 && !bf16) return f(float{}, H32{});
-  if (hd == 32 && bf16) return f(__nv_bfloat16{}, H32{});
+  if (hd == 64) return f(float{}, H64{});
+  if (hd == 32) return f(float{}, H32{});
   return (int)cudaErrorInvalidValue;
 }
 
@@ -439,6 +442,18 @@ int set_smem(K kern, size_t bytes) {
 }
 
 }  // namespace
+
+// the bfloat16 route: tensor-core kernels, flash_relpos_bwd_tc.cu
+extern "C" int cartseg_flash_relpos_bwd_dq_tc(
+    const void* q, const void* k, const void* v, const void* rel_h,
+    const void* rel_w, const void* dout, const void* lse, const void* delta,
+    void* dq, void* drel_h, void* drel_w, int bnh, int S, int g, int hd,
+    float scale, void* stream);
+extern "C" int cartseg_flash_relpos_bwd_dkv_tc(
+    const void* q, const void* k, const void* v, const void* rel_h,
+    const void* rel_w, const void* dout, const void* lse, const void* delta,
+    void* dk, void* dv, int bnh, int S, int g, int hd, float scale,
+    void* stream);
 
 // q, k, v, dout: [bnh, S, hd]; rel_h, rel_w: [bnh, S, g]; all contiguous,
 // of one type: float32 (bf16 == 0) or bfloat16 (bf16 == 1). S == g*g.
@@ -451,7 +466,11 @@ extern "C" int cartseg_flash_relpos_bwd_dq(
     void* dq, void* drel_h, void* drel_w, int bnh, int S, int g, int hd,
     int bf16, float scale, void* stream) {
   if (bnh <= 0 || S <= 0) return (int)cudaGetLastError();
-  return dispatch(hd, bf16, [&](auto t, auto h) {
+  if (bf16)
+    return cartseg_flash_relpos_bwd_dq_tc(q, k, v, rel_h, rel_w, dout, lse,
+                                          delta, dq, drel_h, drel_w, bnh, S,
+                                          g, hd, scale, stream);
+  return dispatch(hd, [&](auto t, auto h) {
     using T = decltype(t);
     constexpr int HD = decltype(h)::value;
     auto kern = flash_bwd_dq<T, HD>;
@@ -477,7 +496,11 @@ extern "C" int cartseg_flash_relpos_bwd_dkv(
     void* dk, void* dv, int bnh, int S, int g, int hd, int bf16, float scale,
     void* stream) {
   if (bnh <= 0 || S <= 0) return (int)cudaGetLastError();
-  return dispatch(hd, bf16, [&](auto t, auto h) {
+  if (bf16)
+    return cartseg_flash_relpos_bwd_dkv_tc(q, k, v, rel_h, rel_w, dout, lse,
+                                           delta, dk, dv, bnh, S, g, hd,
+                                           scale, stream);
+  return dispatch(hd, [&](auto t, auto h) {
     using T = decltype(t);
     constexpr int HD = decltype(h)::value;
     auto kern = flash_bwd_dkv<T, HD>;

@@ -18,11 +18,14 @@ backward recomputes P = exp(logits - lse) tile by tile (Dao et al.):
     drel_h[i, kh] = sum_kw dS[i, kh*g+kw],  drel_w[i, kw] = sum_kh (same),
 
 the gradients in their inputs' types. Kernels: csrc/flash_relpos.cu (the
-forward) and csrc/flash_relpos_bwd.cu (`flash_bwd_dq`: dq, drel_h,
-drel_w; `flash_bwd_dkv`: dk, dv). D stays one PyTorch expression, as JAX
-leaves it to XLA. A wrapper given CPU tensors runs the plain version,
-which materialises the (bnh, S, S) logits; given CUDA tensors it launches
-its kernel or raises. Nothing falls back.
+forward) and, for the backward (`flash_bwd_dq`: dq, drel_h, drel_w;
+`flash_bwd_dkv`: dk, dv), csrc/flash_relpos_bwd.cu, whose C entry points
+keep float32 on the CUDA cores and hand bfloat16 to the tensor-core
+kernels of csrc/flash_relpos_bwd_tc.cu (P and dS rounded to bf16 as the
+operands of the second products, as FlashAttention does). D stays one
+PyTorch expression, as JAX leaves it to XLA. A wrapper given CPU tensors
+runs the plain version, which materialises the (bnh, S, S) logits; given
+CUDA tensors it launches its kernel or raises. Nothing falls back.
 """
 
 from __future__ import annotations
@@ -33,8 +36,8 @@ from cartseg_tpu_torch.ops.cuda import build as B
 
 HEAD_DIMS = (32, 64)
 # the largest grid the kernels take: flash_bwd_dq's shared-memory tiles
-# (four [64, g] bias rows) fit the SM up to here; SAM's 1024^2 input is
-# g = 64, and 2048^2 is 128
+# (four [64, g] bias rows and sums) fit the SM up to here on both
+# routes; SAM's 1024^2 input is g = 64, and 2048^2 is 128
 MAX_GRID = 128
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -190,7 +193,8 @@ def flash_relpos_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_bwd_dq(q, k, v, rel_h, rel_w, do, lse, delta, scale: float,
                  grid_size: int):
     """(dq, drel_h, drel_w). CUDA: `flash_bwd_dq` in
-    csrc/flash_relpos_bwd.cu; CPU: `flash_bwd_dq_plain`."""
+    csrc/flash_relpos_bwd.cu (float32), `flash_bwd_dq_tc` in
+    csrc/flash_relpos_bwd_tc.cu (bfloat16); CPU: `flash_bwd_dq_plain`."""
     args = (q, k, v, rel_h, rel_w, do, lse, delta)
     if _on_cpu(*args):
         return flash_bwd_dq_plain(*args, scale, grid_size)
@@ -211,8 +215,9 @@ def flash_bwd_dq(q, k, v, rel_h, rel_w, do, lse, delta, scale: float,
 
 def flash_bwd_dkv(q, k, v, rel_h, rel_w, do, lse, delta, scale: float,
                   grid_size: int):
-    """(dk, dv). CUDA: `flash_bwd_dkv` in csrc/flash_relpos_bwd.cu; CPU:
-    `flash_bwd_dkv_plain`."""
+    """(dk, dv). CUDA: `flash_bwd_dkv` in csrc/flash_relpos_bwd.cu
+    (float32), `flash_bwd_dkv_tc` in csrc/flash_relpos_bwd_tc.cu
+    (bfloat16); CPU: `flash_bwd_dkv_plain`."""
     args = (q, k, v, rel_h, rel_w, do, lse, delta)
     if _on_cpu(*args):
         return flash_bwd_dkv_plain(*args, scale, grid_size)

@@ -19,11 +19,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
      [6,512,512,8] logits with labels 0..7 and every 7th row ignored,
      loss atol 1e-5 and gradient atol 2e-6 at unit g; the decomposed
      rel-pos flash attention at the ViT-B global block [12,4096,64]
-     (max abs err within 1e-5 of max |plain| in fp32, 3e-2 in bf16) and
-     at the tests' [2,256,32] fp32; its training forward's lse (1e-5 of
-     max |plain|, out bit-equal to the inference call's) and the two
-     backward kernels' five gradients at the same shapes (1e-5 of max
-     |plain| in fp32, 1e-2 in bf16); channel_sums at resnet34-UNet's BN
+     (max abs err within 1e-5 of max |plain| in fp32, 3e-2 in bf16), at
+     the tests' [2,256,32] fp32 and at a ragged [1,529,32] bf16; its
+     training forward's lse (1e-5 of max |plain|, out bit-equal to the
+     inference call's) and the two backward kernels' five gradients at
+     the same shapes (1e-5 of max |plain| in fp32 on the CUDA cores,
+     1e-2 in bf16 on the tensor cores); channel_sums at resnet34-UNet's BN
      inputs at 512^2 bs6 (the stem [6,64,256,256], a layer3 BN
      [6,256,32,32], the decoder's 16-channel top [6,16,512,512]),
      channels_last and contiguous, fp32 and bf16, (x, x) and (dy, x),
@@ -108,9 +109,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
      excluded) and the ABL loss's share of it, SAM's set_image and
      predict and the global blocks' share of set_image, the SAM fine-tune
      step for both lanes with the global blocks' share and the device's
-     busy share, the BCE+Dice step in both BN lanes at 512^2 bs6 and at
-     bench.py's train half (224^2 bs128) with the BN layers' share and
-     the busy share, and each kernel against its plain version and,
+     busy share, its device time by kernel (which must name the bf16
+     backward's tensor-core kernels) and, at the step's inputs, each
+     bf16 backward gradient's distance to a float64 reference for the
+     kernels, the plain version and SDPA autograd, the BCE+Dice step
+     in both BN lanes at 512^2 bs6 and at bench.py's train half (224^2
+     bs128) with the BN layers' share and the busy share, and each
+     kernel against its plain version and,
      where one PyTorch call computes the same function, that call, at
      the path's shapes, beside its bound (channel_sums: per launch at
      the stem, a layer3 BN and the decoder top, and over one step's 92
@@ -160,10 +165,11 @@ KERNELS = {
                 "cartseg_tpu/ops/pallas/lsr.py:61"),
     "flash_fwd": ("cartseg_tpu_torch/ops/cuda/csrc/flash_relpos.cu",
                   "cartseg_tpu/ops/pallas/flash_attention.py:88"),
-    "flash_bwd_dq": ("cartseg_tpu_torch/ops/cuda/csrc/flash_relpos_bwd.cu",
+    "flash_bwd_dq": ("cartseg_tpu_torch/ops/cuda/csrc/flash_relpos_bwd_tc.cu",
                      "cartseg_tpu/ops/pallas/flash_attention.py:179"),
-    "flash_bwd_dkv": ("cartseg_tpu_torch/ops/cuda/csrc/flash_relpos_bwd.cu",
-                      "cartseg_tpu/ops/pallas/flash_attention.py:232"),
+    "flash_bwd_dkv": (
+        "cartseg_tpu_torch/ops/cuda/csrc/flash_relpos_bwd_tc.cu",
+        "cartseg_tpu/ops/pallas/flash_attention.py:232"),
     "channel_sums": ("cartseg_tpu_torch/ops/cuda/csrc/channel_sums.cu",
                      "cartseg_tpu/ops/pallas/channel_sums.py:39"),
     "focal": ("cartseg_tpu_torch/ops/cuda/csrc/focal.cu",
@@ -183,6 +189,8 @@ TRAIN_KERNELS = ("edt", "lsr_fwd", "lsr_bwd")
 SAM_KERNELS = ("flash_fwd",)
 SAM_TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 BWD_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
+# the bf16 backward's tensor-core kernels, as the profiler names them
+BWD_TC_SYMBOLS = ("flash_bwd_dq_tc", "flash_bwd_dkv_tc")
 SAM_TRAIN_STEPS = 3
 # resnet34-UNet: 36 BatchNorms in the encoder, 10 in the decoder; the
 # kernel lane calls channel_sums once forward and once backward in each
@@ -197,14 +205,21 @@ BENCH_TRAIN = (224, 128)  # bench.py's train half: 224^2, bs128
 LSR_TOL = {"lsr_fwd": 1e-5, "lsr_bwd": 2e-6}
 # flash kernel vs plain: max abs error over the plain output's max |value|
 FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
-# backward kernels vs plain, the same measure: in bf16 both sides sum in
-# fp32 from the same inputs and round once to bf16, so they differ by at
-# most one bf16 step (2^-7 = 7.8e-3 of a value)
+# backward kernels vs plain, the same measure. In fp32 both sides keep
+# every value in fp32. In bf16 the tensor-core kernels round P and dS to
+# bf16 once each, as the A operands of dS K, P^T dO and dS^T Q (as
+# FlashAttention-2/3 and SDPA's bf16 backward do), and round each output
+# once; the plain version rounds only the outputs. One bf16 rounding is up
+# to 2^-9 of a value, and an emulation of these rounding points on the
+# CPU (tests/test_torch_flash_bwd_rounding.py) lands within 6.2e-3 of max
+# |plain| at [2,256,64], [1,529,32] and [2,4096,64]
 FLASH_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # (bnh, g, head_dim, type) of the flash kernels' checks against their
-# plain versions: the ViT-B global block in fp32 and bf16, the tests' size
+# plain versions: the ViT-B global block in fp32 and bf16, the tests'
+# size, and a ragged bf16 grid (S = 529, not a multiple of the 64-row
+# tiles; the tensor-core backward's staged drel sums)
 FLASH_CASES = ((12, 64, 64, torch.float32), (12, 64, 64, torch.bfloat16),
-               (2, 16, 32, torch.float32))
+               (2, 16, 32, torch.float32), (1, 23, 32, torch.bfloat16))
 SAM_FRAMES = ((1024, 1024),) * 3 + ((512, 512),)   # create_testset, hard
 SAM_GLOBAL_BLOCKS = 4
 # the loss zoo's kernels (cartseg_tpu_torch.losses) and their path shapes:
@@ -312,13 +327,24 @@ def sums_bound(a: torch.Tensor, b: torch.Tensor, same: bool) -> tuple:
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
+def demangle(name: str) -> str:
+    """A kernel's C++ name and template arguments, without its parameter
+    list, where c++filt is at hand; else the symbol as it is."""
+    try:
+        out = subprocess.run(["c++filt", name], capture_output=True,
+                             text=True, check=True).stdout.strip()
+    except (OSError, subprocess.CalledProcessError):
+        return name
+    return out.split("(anonymous namespace)::")[-1].split("(")[0]
+
+
 def ptxas_report(text: str) -> list:
     """(kernel, 'Used ...' line, spill line) per entry function of the
     compiler's -Xptxas -v output."""
     rows, name, spill = [], None, ""
     for line in text.splitlines():
         if "Compiling entry function" in line:
-            name, spill = line.split("'")[1], ""
+            name, spill = demangle(line.split("'")[1]), ""
         elif "spill" in line:
             spill = line.split(":", 1)[-1].strip()
         elif "Used" in line and name:
@@ -1663,9 +1689,9 @@ def phase_sam_train(tmp: Path, dev) -> dict:
     return {"launches": launches, "model": model, "x": x, "ckpt": ckpt}
 
 
-def top_device_ops(fn, n_top: int = 8) -> tuple:
-    """The device kernels and copies that take most time in one call of
-    fn, as (name, ms summed over their launches), and their total ms."""
+def device_op_ms(fn) -> dict:
+    """ms of each device kernel or copy, by name, summed over its launches
+    in one call of fn (profiler)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1678,8 +1704,38 @@ def top_device_ops(fn, n_top: int = 8) -> tuple:
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             ms[e.name] = ms.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return ms
+
+
+def top_device_ops(fn, n_top: int = 8, ms: dict = None) -> tuple:
+    """The device kernels and copies that take most time in one call of
+    fn (or in `ms`, device_op_ms's result), as (name, ms summed over their
+    launches), and their total ms."""
+    ms = device_op_ms(fn) if ms is None else ms
     rows = sorted(ms.items(), key=lambda r: -r[1])
     return rows[:n_top], sum(ms.values())
+
+
+def bwd_f64_distances(ts, do, scale: float, g: int, lanes: dict,
+                      heads: int) -> dict:
+    """Each backward gradient's (dq, dk, dv, drel_h, drel_w) max abs
+    distance over the float64 gradient's max |value|, on the first
+    `heads` heads: the exact backward of softmax(scale q k^T + bias) v in
+    float64 from the same inputs and dO."""
+    d = torch.float64
+    q, k, v, rh, rw = (t[:heads].to(d) for t in ts)
+    do = do[:heads].to(d)
+    bnh, S, _ = q.shape
+    bias = (rh[:, :, :, None] + rw[:, :, None, :]).reshape(bnh, S, S)
+    p = torch.softmax(q @ k.transpose(1, 2) * scale + bias, dim=-1)
+    ds = p * (do @ v.transpose(1, 2)
+              - (do * (p @ v)).sum(-1, keepdim=True))
+    ds4 = ds.reshape(bnh, S, g, g)
+    ref = (ds @ k * scale, ds.transpose(1, 2) @ q * scale,
+           p.transpose(1, 2) @ do, ds4.sum(-1), ds4.sum(-2))
+    return {lane: [float((a[:heads].double() - r).abs().max()
+                         / r.abs().max()) for a, r in zip(grads, ref)]
+            for lane, grads in lanes.items()}
 
 
 def phase_sam_timing(pred, frames, dev, card: str) -> dict:
@@ -1805,10 +1861,19 @@ def phase_sam_train_timing(train: dict, dev, card: str) -> dict:
     f2 = cuda_ms(lambda: sam_step(model, x), 5)
     step_ms, plain_ms = (f1 + f2) / 2, (p1 + p2) / 2
     busy = _busy_share(lambda: sam_step(model, x), 3)
-    rows, total = top_device_ops(lambda: sam_step(model, x))
+    ops = device_op_ms(lambda: sam_step(model, x))
+    rows, total = top_device_ops(None, ms=ops)
     log(f"  fine-tune step device time by kernel (profiler, one step, "
         f"{total:.3f} ms of kernels and copies): " + "; ".join(
             f"{name[:70]} {ms:.3f}" for name, ms in rows))
+    tc = {sym: sorted((ms, n) for n, ms in ops.items() if sym in n)
+          for sym in BWD_TC_SYMBOLS}
+    if not all(tc.values()):
+        raise AssertionError(f"the bf16 step's profile names no "
+                             f"{[k for k, v in tc.items() if not v]} kernel")
+    log("  the bf16 backward's tensor-core kernels in the step's profile: "
+        + "; ".join(f"{n[:60]} {ms:.3f} ms" for found in tc.values()
+                    for ms, n in found))
 
     # the global blocks' inputs, and the flash call's arguments and output
     # gradient in the first of them
@@ -1876,6 +1941,17 @@ def phase_sam_train_timing(train: dict, dev, card: str) -> dict:
         ref = flash_relpos_bwd_plain(*ts, o, lse, do, scale, g)
         lerr = max(float((a.float() - b.float()).abs().max())
                    for a, b in zip(lib(), ref))
+        if dt == torch.bfloat16:
+            (dq, drh, drw), (dk, dv) = (flash_bwd_dq(*args),
+                                        flash_bwd_dkv(*args))
+            dist = bwd_f64_distances(ts, do, scale, g, {
+                "kernels": (dq, dk, dv, drh, drw), "plain": ref,
+                "SDPA autograd": lib()}, heads=4)
+            log(f"  bf16 backward at the step's inputs, heads 0-3: max abs "
+                f"distance to the float64 gradient over its max |value| "
+                f"(dq, dk, dv, drel_h, drel_w): " + "; ".join(
+                    f"{lane} " + ", ".join(f"{e:.2e}" for e in errs)
+                    for lane, errs in dist.items()))
         cases = {"flash_bwd_dq": (lambda: flash_bwd_dq(*args),
                                   lambda: flash_bwd_dq_plain(*args)),
                  "flash_bwd_dkv": (lambda: flash_bwd_dkv(*args),
