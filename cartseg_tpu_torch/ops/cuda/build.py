@@ -39,10 +39,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 LAUNCHES = {"cc": 0, "reach": 0, "median": 0, "edt": 0, "lsr_fwd": 0,
-            "lsr_bwd": 0, "flash_fwd": 0, "flash_bwd_dq": 0,
-            "flash_bwd_dkv": 0, "channel_sums": 0, "focal": 0,
-            "soft_dice": 0, "one_hot": 0, "mish_fwd": 0, "mish_bwd": 0,
-            "swish_fwd": 0, "swish_bwd": 0, "hswish_fwd": 0,
+            "lsr_bwd": 0, "flash_fwd": 0, "flash_fwd_tc": 0,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "channel_sums": 0,
+            "focal": 0, "soft_dice": 0, "one_hot": 0, "mish_fwd": 0,
+            "mish_bwd": 0, "swish_fwd": 0, "swish_bwd": 0, "hswish_fwd": 0,
             "hswish_bwd": 0}
 
 _P = ctypes.c_void_p
@@ -56,8 +56,9 @@ _SIGNATURES = {
     "cartseg_reach": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # (x, hist scratch, state scratch, out, B, N, stream)
     "cartseg_median_nonneg": (_P, _P, _P, _P, _I, _I, _P),
-    # (seeds, state a, state b, dist, B, H, W, stream)
-    "cartseg_edt": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # (seeds, state, dist, B, H, W, split, steps, n_a, n_b, cells_a, tile,
+    #  halo, cells_b, stream)
+    "cartseg_edt": (_P, _P, _P) + (_I,) * 4 + (_P,) + (_I,) * 6 + (_P,),
     # (x, labels, loss, n, C, lb_pos, lb_neg, ignore, stream)
     "cartseg_lsr_fwd": (_P, _P, _P, _L, _I, _F, _F, _I, _P),
     # (x, labels, g, grad, n, C, lb_pos, lb_neg, ignore, stream)

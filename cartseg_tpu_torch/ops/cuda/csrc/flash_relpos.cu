@@ -6,8 +6,9 @@
 // of S = g*g tokens on a g x g grid:
 //   out[i] = sum_j p_ij v_j,
 //   p_ij   = softmax_j(scale * (q_i . k_j) + rel_h[i, j / g] + rel_w[i, j % g])
-// with an fp32 online softmax whatever the input type (running max from
-// -1e30, IEEE expf), output in the inputs' type. The (S, S) logits and
+// with an fp32 online softmax (running max from -1e30, IEEE expf), for
+// float32 inputs and output (bfloat16 takes flash_relpos_fwd_tc.cu). The
+// (S, S) logits and
 // bias are never written to device memory: a block rebuilds each 64x64
 // tile of them in registers from Q, K and the two [S, g] factors, which
 // is what the TPU kernel kept out of HBM too. Given a non-null lse (the
@@ -32,8 +33,9 @@
 // the two products are 2 * 2*12*4096^2*64 = 51.5 GFLOP, against 75.5 MB
 // of fp32 inputs and output: 0.77 ms at the 67 TFLOP/s fp32 CUDA-core
 // peak, 0.023 ms of memory traffic. Both products run as fp32 FMAs on
-// the CUDA cores (bf16 inputs are widened on load), 4x4 outer products
-// from shared memory; tensor cores (mma/wgmma) and TMA are later work.
+// the CUDA cores, 4x4 outer products from shared memory. This kernel is
+// the float32 route; bfloat16 inputs go to the tensor-core kernel of
+// flash_relpos_fwd_tc.cu (the C entry point below dispatches both).
 
 #include <math_constants.h>
 
@@ -55,11 +57,11 @@ size_t smem_bytes(int g) {
   return sizeof(float) * (size_t)(qs + ks + vs + ps + rs);
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_relpos_fwd(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ rel_h,
-                 const T* __restrict__ rel_w, T* __restrict__ out,
+flash_relpos_fwd(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ rel_h,
+                 const float* __restrict__ rel_w, float* __restrict__ out,
                  float* __restrict__ lse, int S, int g, float scale) {
   constexpr int QST = row_stride<HD>();
   constexpr int KST = row_stride<HD>();
@@ -84,7 +86,7 @@ flash_relpos_fwd(const T* __restrict__ q, const T* __restrict__ k,
   const size_t rbase = (size_t)blockIdx.y * S * g;
 
   // the block's query rows, and its rows of the two bias factors
-  load_rows<T, HD>(qs, q + base, q0, S);
+  load_rows<HD>(qs, q + base, q0, S);
   load_rel(rhs, rws, rel_h + rbase, rel_w + rbase, q0, S, g, RST);
 
   float m[4], l[4], acc[4][CD];
@@ -217,36 +219,45 @@ flash_relpos_fwd(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + ty * 4 + i;
     if (r >= S) continue;
-    T* o = out + base + (size_t)r * HD + tx * CD;
+    float* o = out + base + (size_t)r * HD + tx * CD;
 #pragma unroll
-    for (int jj = 0; jj < CD; ++jj) from_f(o + jj, acc[i][jj] / l[i]);
+    for (int jj = 0; jj < CD; ++jj) o[jj] = acc[i][jj] / l[i];
     // the training forward's logsumexp, m + log(l) as the TPU kernel
     if (lse != nullptr && tx == 0)
       lse[(size_t)blockIdx.y * S + r] = m[i] + logf(l[i]);
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch(const void* q, const void* k, const void* v, const void* rh,
            const void* rw, void* out, float* lse, int bnh, int S, int g,
            float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<HD>(g);
-  auto kern = flash_relpos_fwd<T, HD>;
+  auto kern = flash_relpos_fwd<HD>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + kBQ - 1) / kBQ, bnh);
   kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(rh),
-      static_cast<const T*>(rw), static_cast<T*>(out), lse, S, g, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(rh),
+      static_cast<const float*>(rw), static_cast<float*>(out), lse, S, g,
+      scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// the bfloat16 route: the tensor-core kernel, flash_relpos_fwd_tc.cu
+extern "C" int cartseg_flash_relpos_fwd_tc(const void* q, const void* k,
+                                           const void* v, const void* rel_h,
+                                           const void* rel_w, void* out,
+                                           void* lse, int bnh, int S, int g,
+                                           int hd, float scale, void* stream);
+
 // q, k, v, out: [bnh, S, hd]; rel_h, rel_w: [bnh, S, g]; all contiguous,
-// of one type: float32 (bf16 == 0) or bfloat16 (bf16 == 1). S == g*g.
+// of one type: float32 (bf16 == 0, this file's CUDA-core kernel) or
+// bfloat16 (bf16 == 1, 16-byte aligned: flash_relpos_fwd_tc.cu). S == g*g.
 // lse: null (inference: nothing written) or fp32 [bnh, S], the rows'
 // logsumexp for the backward.
 extern "C" int cartseg_flash_relpos_fwd(const void* q, const void* k,
@@ -255,20 +266,15 @@ extern "C" int cartseg_flash_relpos_fwd(const void* q, const void* k,
                                         void* lse, int bnh, int S, int g,
                                         int hd, int bf16, float scale,
                                         void* stream) {
+  if (bf16)
+    return cartseg_flash_relpos_fwd_tc(q, k, v, rel_h, rel_w, out, lse, bnh,
+                                       S, g, hd, scale, stream);
   if (bnh <= 0 || S <= 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
   float* l = static_cast<float*>(lse);
-  if (hd == 64 && !bf16)
-    return launch<float, 64>(q, k, v, rel_h, rel_w, out, l, bnh, S, g, scale,
-                             st);
-  if (hd == 64 && bf16)
-    return launch<__nv_bfloat16, 64>(q, k, v, rel_h, rel_w, out, l, bnh, S,
-                                     g, scale, st);
-  if (hd == 32 && !bf16)
-    return launch<float, 32>(q, k, v, rel_h, rel_w, out, l, bnh, S, g, scale,
-                             st);
-  if (hd == 32 && bf16)
-    return launch<__nv_bfloat16, 32>(q, k, v, rel_h, rel_w, out, l, bnh, S,
-                                     g, scale, st);
+  if (hd == 64)
+    return launch<64>(q, k, v, rel_h, rel_w, out, l, bnh, S, g, scale, st);
+  if (hd == 32)
+    return launch<32>(q, k, v, rel_h, rel_w, out, l, bnh, S, g, scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -80,14 +80,14 @@ size_t dkv_smem_bytes(int g) {
   return sizeof(float) * (size_t)(tiles + pd + rel + 2 * kBQ);
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const T* __restrict__ rel_h,
-             const T* __restrict__ rel_w, const T* __restrict__ dout,
+flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const float* __restrict__ rel_h,
+             const float* __restrict__ rel_w, const float* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ delta,
-             T* __restrict__ dq, T* __restrict__ drel_h,
-             T* __restrict__ drel_w, int S, int g, float scale) {
+             float* __restrict__ dq, float* __restrict__ drel_h,
+             float* __restrict__ drel_w, int S, int g, float scale) {
   constexpr int ST = row_stride<HD>();
   constexpr int DST = kBK + 4;
   constexpr int CD = HD / 16;  // dq columns per thread
@@ -114,8 +114,8 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   const size_t rbase = (size_t)blockIdx.y * S * g;
   const size_t lbase = (size_t)blockIdx.y * S;
 
-  load_rows<T, HD>(qs, q + base, q0, S);
-  load_rows<T, HD>(dos, dout + base, q0, S);
+  load_rows<HD>(qs, q + base, q0, S);
+  load_rows<HD>(dos, dout + base, q0, S);
   load_rel(rhs, rws, rel_h + rbase, rel_w + rbase, q0, S, g, RST);
   for (int e = tid; e < kBQ * RST; e += kThreads) {
     ghs[e] = 0.f;
@@ -139,8 +139,8 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
     const int k0 = kt * kBK;
     const int nk = min(kBK, S - k0);
     __syncthreads();  // the previous tile's ks / vs / dss reads are done
-    load_rows<T, HD>(ks, k + base, k0, S);
-    load_rows<T, HD>(vs, v + base, k0, S);
+    load_rows<HD>(ks, k + base, k0, S);
+    load_rows<HD>(vs, v + base, k0, S);
     __syncthreads();
 
     // s = q . k and dp = dO . v over head_dim, 4 rows x 4 keys a thread
@@ -252,26 +252,26 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + ty * 4 + i;
     if (r >= S) continue;
-    T* o = dq + base + (size_t)r * HD + tx * CD;
+    float* o = dq + base + (size_t)r * HD + tx * CD;
 #pragma unroll
-    for (int jj = 0; jj < CD; ++jj) from_f(o + jj, acc[i][jj] * scale);
+    for (int jj = 0; jj < CD; ++jj) o[jj] = acc[i][jj] * scale;
   }
   for (int e = tid; e < kBQ * g; e += kThreads) {
     const int r = e / g, c = e - r * g;
     if (q0 + r >= S) continue;
     const size_t off = rbase + (size_t)q0 * g + e;
-    from_f(drel_h + off, ghs[r * RST + c]);
-    from_f(drel_w + off, gws[r * RST + c]);
+    drel_h[off] = ghs[r * RST + c];
+    drel_w[off] = gws[r * RST + c];
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const T* __restrict__ rel_h,
-              const T* __restrict__ rel_w, const T* __restrict__ dout,
+flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ rel_h,
+              const float* __restrict__ rel_w, const float* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
-              T* __restrict__ dk, T* __restrict__ dv, int S, int g,
+              float* __restrict__ dk, float* __restrict__ dv, int S, int g,
               float scale) {
   constexpr int ST = row_stride<HD>();
   constexpr int PST = kBQ + 4;
@@ -299,8 +299,8 @@ flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
   const size_t rbase = (size_t)blockIdx.y * S * g;
   const size_t lbase = (size_t)blockIdx.y * S;
 
-  load_rows<T, HD>(ks, k + base, k0, S);
-  load_rows<T, HD>(vs, v + base, k0, S);
+  load_rows<HD>(ks, k + base, k0, S);
+  load_rows<HD>(vs, v + base, k0, S);
 
   // the thread's keys k0 + 4ty + i: grid row and column, and < S
   int kh[4], kw[4];
@@ -320,8 +320,8 @@ flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
   for (int qt = 0; qt < n_tiles; ++qt) {
     const int q0 = qt * kBQ;
     __syncthreads();  // the previous tile's reads are done
-    load_rows<T, HD>(qs, q + base, q0, S);
-    load_rows<T, HD>(dos, dout + base, q0, S);
+    load_rows<HD>(qs, q + base, q0, S);
+    load_rows<HD>(dos, dout + base, q0, S);
     load_rel(rhs, rws, rel_h + rbase, rel_w + rbase, q0, S, g, RST);
     for (int e = tid; e < kBQ; e += kThreads) {
       const bool ok = q0 + e < S;
@@ -419,19 +419,19 @@ flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
     const size_t off = base + (size_t)(k0 + ty * 4 + i) * HD + tx * CD;
 #pragma unroll
     for (int jj = 0; jj < CD; ++jj) {
-      from_f(dk + off + jj, gk[i][jj] * scale);
-      from_f(dv + off + jj, gv[i][jj]);
+      dk[off + jj] = gk[i][jj] * scale;
+      dv[off + jj] = gv[i][jj];
     }
   }
 }
 
-// calls f(float{}, HD) for the head_dim: the float32 route
+// calls f(HD) for the head_dim: the float32 route
 template <typename F>
 int dispatch(int hd, F f) {
   using H32 = std::integral_constant<int, 32>;
   using H64 = std::integral_constant<int, 64>;
-  if (hd == 64) return f(float{}, H64{});
-  if (hd == 32) return f(float{}, H32{});
+  if (hd == 64) return f(H64{});
+  if (hd == 32) return f(H32{});
   return (int)cudaErrorInvalidValue;
 }
 
@@ -470,21 +470,20 @@ extern "C" int cartseg_flash_relpos_bwd_dq(
     return cartseg_flash_relpos_bwd_dq_tc(q, k, v, rel_h, rel_w, dout, lse,
                                           delta, dq, drel_h, drel_w, bnh, S,
                                           g, hd, scale, stream);
-  return dispatch(hd, [&](auto t, auto h) {
-    using T = decltype(t);
+  return dispatch(hd, [&](auto h) {
     constexpr int HD = decltype(h)::value;
-    auto kern = flash_bwd_dq<T, HD>;
+    auto kern = flash_bwd_dq<HD>;
     const size_t smem = dq_smem_bytes<HD>(g);
     const int err = set_smem(kern, smem);
     if (err) return err;
     kern<<<dim3((S + kBQ - 1) / kBQ, bnh), kThreads, smem,
            (cudaStream_t)stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(rel_h),
-        static_cast<const T*>(rel_w), static_cast<const T*>(dout),
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(rel_h),
+        static_cast<const float*>(rel_w), static_cast<const float*>(dout),
         static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<T*>(dq), static_cast<T*>(drel_h), static_cast<T*>(drel_w),
-        S, g, scale);
+        static_cast<float*>(dq), static_cast<float*>(drel_h),
+        static_cast<float*>(drel_w), S, g, scale);
     return (int)cudaGetLastError();
   });
 }
@@ -500,20 +499,19 @@ extern "C" int cartseg_flash_relpos_bwd_dkv(
     return cartseg_flash_relpos_bwd_dkv_tc(q, k, v, rel_h, rel_w, dout, lse,
                                            delta, dk, dv, bnh, S, g, hd,
                                            scale, stream);
-  return dispatch(hd, [&](auto t, auto h) {
-    using T = decltype(t);
+  return dispatch(hd, [&](auto h) {
     constexpr int HD = decltype(h)::value;
-    auto kern = flash_bwd_dkv<T, HD>;
+    auto kern = flash_bwd_dkv<HD>;
     const size_t smem = dkv_smem_bytes<HD>(g);
     const int err = set_smem(kern, smem);
     if (err) return err;
     kern<<<dim3((S + kBK - 1) / kBK, bnh), kThreads, smem,
            (cudaStream_t)stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(rel_h),
-        static_cast<const T*>(rel_w), static_cast<const T*>(dout),
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(rel_h),
+        static_cast<const float*>(rel_w), static_cast<const float*>(dout),
         static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<T*>(dk), static_cast<T*>(dv), S, g, scale);
+        static_cast<float*>(dk), static_cast<float*>(dv), S, g, scale);
     return (int)cudaGetLastError();
   });
 }

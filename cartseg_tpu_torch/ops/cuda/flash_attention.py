@@ -17,12 +17,16 @@ backward recomputes P = exp(logits - lse) tile by tile (Dao et al.):
     dq = scale * dS @ k,  dk = scale * dS^T @ q,  dv = P^T @ dO,
     drel_h[i, kh] = sum_kw dS[i, kh*g+kw],  drel_w[i, kw] = sum_kh (same),
 
-the gradients in their inputs' types. Kernels: csrc/flash_relpos.cu (the
-forward) and, for the backward (`flash_bwd_dq`: dq, drel_h, drel_w;
-`flash_bwd_dkv`: dk, dv), csrc/flash_relpos_bwd.cu, whose C entry points
-keep float32 on the CUDA cores and hand bfloat16 to the tensor-core
-kernels of csrc/flash_relpos_bwd_tc.cu (P and dS rounded to bf16 as the
-operands of the second products, as FlashAttention does). D stays one
+the gradients in their inputs' types. Kernels: for the forward,
+csrc/flash_relpos.cu, whose C entry point keeps float32 on the CUDA cores
+(`flash_fwd`) and hands bfloat16 to the tensor-core kernel of
+csrc/flash_relpos_fwd_tc.cu (`flash_fwd_tc`: P rounded to bf16 as the
+operand of P V, as FlashAttention does); for the backward
+(`flash_bwd_dq`: dq, drel_h, drel_w; `flash_bwd_dkv`: dk, dv),
+csrc/flash_relpos_bwd.cu, whose C entry points keep float32 on the CUDA
+cores and hand bfloat16 to the tensor-core kernels of
+csrc/flash_relpos_bwd_tc.cu (P and dS rounded to bf16 as the operands of
+the second products). D stays one
 PyTorch expression, as JAX leaves it to XLA. A wrapper given CPU tensors
 runs the plain version, which materialises the (bnh, S, S) logits; given
 CUDA tensors it launches its kernel or raises. Nothing falls back.
@@ -168,8 +172,11 @@ def flash_relpos_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      grid_size: int, with_lse: bool = False):
     """[bnh,S,hd] attention output, and with `with_lse` also the fp32
     [bnh,S] logsumexp for the backward (the inference call writes none).
-    CUDA: csrc/flash_relpos.cu; CPU: the plain versions. No autograd on
-    the CUDA lane (see `flash_attention_relpos` in ops/flash_attention.py)."""
+    CUDA: `flash_relpos_fwd` in csrc/flash_relpos.cu (float32, counted in
+    LAUNCHES["flash_fwd"]), `flash_fwd_tc` in csrc/flash_relpos_fwd_tc.cu
+    (bfloat16, LAUNCHES["flash_fwd_tc"]); CPU: the plain versions. No
+    autograd on the CUDA lane (see `flash_attention_relpos` in
+    ops/flash_attention.py)."""
     if _on_cpu(q, k, v, rel_h, rel_w):
         fn = flash_relpos_fwd_lse_plain if with_lse else flash_relpos_fwd_plain
         return fn(q, k, v, rel_h, rel_w, scale, grid_size)
@@ -186,7 +193,8 @@ def flash_relpos_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             None if lse is None else lse.data_ptr(), bnh, S, int(grid_size),
             hd, int(q.dtype == torch.bfloat16), float(scale), B.stream_of(q))
     B.check(rc, "flash_relpos_fwd")
-    B.LAUNCHES["flash_fwd"] += 1
+    B.LAUNCHES["flash_fwd_tc" if q.dtype == torch.bfloat16
+               else "flash_fwd"] += 1
     return (out, lse) if with_lse else out
 
 

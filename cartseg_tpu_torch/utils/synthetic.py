@@ -1,4 +1,5 @@
-"""Seeded synthetic inputs: masks for the CC checks, a PNG image tree
+"""Seeded synthetic inputs: masks for the CC checks, seeds for the
+distance transform, a PNG image tree
 for the pseudo-label workload and a PNG image+mask tree for training
 (the counterparts of cartseg_tpu/data/dataset.py:make_synthetic_tree,
 written as PNG through utils/image_io so they need no OpenCV)."""
@@ -66,6 +67,30 @@ def blob_masks(rng: np.random.Generator, shape: Tuple[int, int, int],
             rad = rng.integers(2, max(3, min(H, W) // 5))
             m[b] |= (yy - cy) ** 2 + (xx - cx) ** 2 <= rad * rad
     return m
+
+
+def edt_seeds(rng: np.random.Generator, shape: Tuple[int, int, int],
+              n: int = 6) -> np.ndarray:
+    """[B,H,W] bool seeds for the distance transform: the boundaries of n
+    random discs per image, as losses/abl.py gt2boundary draws them. From
+    six samples on, sample 3 has no seed, sample 4 a single one (at
+    (137, 401) of a 512^2 image, scaled to the image) and sample 5 every
+    pixel, and samples past 5 hold 1 % of their pixels at random; with
+    two to five samples, the last holds the single seed."""
+    B, H, W = shape
+    m = blob_masks(rng, shape, n=n)
+    s = np.zeros_like(m)
+    s[:, :-1] |= m[:, :-1] != m[:, 1:]
+    s[:, :, :-1] |= m[:, :, :-1] != m[:, :, 1:]
+    if B >= 6:
+        s[3] = False
+        s[5] = True
+        s[6:] = rng.random((B - 6, H, W)) < 0.01
+    if B >= 2:
+        single = min(B - 1, 4)
+        s[single] = False
+        s[single, (137 * H) // 512, (401 * W) // 512] = True
+    return s
 
 
 def frame(rng: np.random.Generator, hw: Tuple[int, int]) -> np.ndarray:

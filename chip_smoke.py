@@ -14,15 +14,19 @@ Phases, in order; any failure raises and the exit code is non-zero:
      Canny runs on the synthetic frames; the median on |p-0.5|*2 rows of
      [64,262144], rows with many duplicates and all-zero rows; the EDT
      on [6,512,512] GT boundaries of blob masks plus a no-seed, a
-     single-seed and an all-seed sample - all bit for bit (torch.equal
-     after synchronize); the LSR CE forward and backward on
+     single-seed and an all-seed sample, and at EDT_SHAPES ([2,400,512],
+     [3,37,53], [2,1,77], [1,1,1], [1,2048,2048]), each twice - all bit
+     for bit (torch.equal after synchronize); the LSR CE forward and
+     backward on
      [6,512,512,8] logits with labels 0..7 and every 7th row ignored,
      loss atol 1e-5 and gradient atol 2e-6 at unit g; the decomposed
      rel-pos flash attention at the ViT-B global block [12,4096,64]
-     (max abs err within 1e-5 of max |plain| in fp32, 3e-2 in bf16), at
-     the tests' [2,256,32] fp32 and at a ragged [1,529,32] bf16; its
-     training forward's lse (1e-5 of max |plain|, out bit-equal to the
-     inference call's) and the two backward kernels' five gradients at
+     (max abs err within 1e-5 of max |plain| in fp32 on the CUDA cores,
+     1e-2 in bf16 on the tensor cores, the same bits twice), at the
+     tests' [2,256,32] fp32 and at a ragged [1,529,32] bf16; its training
+     forward's lse (fp32 1e-5 of max |plain|, bf16 1e-5 absolute; out
+     bit-equal to the inference call's) and the two backward kernels'
+     five gradients at
      the same shapes (1e-5 of max |plain| in fp32 on the CUDA cores,
      1e-2 in bf16 on the tensor cores); channel_sums at resnet34-UNet's BN
      inputs at 512^2 bs6 (the stem [6,64,256,256], a layer3 BN
@@ -68,7 +72,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
         True), dtype=torch.bfloat16)` loaded by name from a seeded
         official-named .pth, preprocess + encode_image on one 1024^2
         uint8 frame, loss mean(feats^2), loss.backward(), 3 steps;
-        flash_fwd, flash_bwd_dq and flash_bwd_dkv launched 4 times each
+        flash_fwd_tc, flash_bwd_dq and flash_bwd_dkv launched 4 times each
         per step, finite loss, a finite non-zero gradient on every encoder
         parameter and none on the prompt encoder or decoder; then the
         flash lane against the plain lane (global_attn_flash=False) on the
@@ -110,9 +114,14 @@ Phases, in order; any failure raises and the exit code is non-zero:
      predict and the global blocks' share of set_image, the SAM fine-tune
      step for both lanes with the global blocks' share and the device's
      busy share, its device time by kernel (which must name the bf16
-     backward's tensor-core kernels) and, at the step's inputs, each
-     bf16 backward gradient's distance to a float64 reference for the
-     kernels, the plain version and SDPA autograd, the BCE+Dice step
+     tensor-core kernels flash_fwd_tc, flash_bwd_dq_tc and
+     flash_bwd_dkv_tc) and, at the step's inputs, the bf16 training
+     forward against its plain version and SDPA and each bf16 backward
+     gradient's distance to a float64 reference for the kernels, the
+     plain version and SDPA autograd; the EDT at the ABL step's GT
+     boundaries and the boundary step's masks, with its bytes and
+     operations bounds and the CUDA kernels one call runs (which must be
+     at most 3); the BCE+Dice step
      in both BN lanes at 512^2 bs6 and at bench.py's train half (224^2
      bs128) with the BN layers' share and the busy share, and each
      kernel against its plain version and,
@@ -124,7 +133,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
      path shapes in device time (profiler, the L2 flushed before each
      call) against their plain versions,
      F.mish / F.silu / F.hardswish and ATen's mish/silu/hardswish
-     backward, and their bounds; the boundary workload's train step
+     backward, and their bounds, then each activation forward against
+     its PyTorch call in ACT_PAIRS alternating cold-L2 pairs (medians
+     and spread); the boundary workload's train step
      against the same step with BCE+Dice alone, its busy share and its
      4 edt launches.
 The line before the last holds the kernels' JSON record, the one before
@@ -165,6 +176,8 @@ KERNELS = {
                 "cartseg_tpu/ops/pallas/lsr.py:61"),
     "flash_fwd": ("cartseg_tpu_torch/ops/cuda/csrc/flash_relpos.cu",
                   "cartseg_tpu/ops/pallas/flash_attention.py:88"),
+    "flash_fwd_tc": ("cartseg_tpu_torch/ops/cuda/csrc/flash_relpos_fwd_tc.cu",
+                     "cartseg_tpu/ops/pallas/flash_attention.py:88"),
     "flash_bwd_dq": ("cartseg_tpu_torch/ops/cuda/csrc/flash_relpos_bwd_tc.cu",
                      "cartseg_tpu/ops/pallas/flash_attention.py:179"),
     "flash_bwd_dkv": (
@@ -187,10 +200,11 @@ KERNELS = {
 PSEUDO_KERNELS = ("cc", "reach", "median")
 TRAIN_KERNELS = ("edt", "lsr_fwd", "lsr_bwd")
 SAM_KERNELS = ("flash_fwd",)
-SAM_TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+SAM_TRAIN_KERNELS = ("flash_fwd_tc", "flash_bwd_dq", "flash_bwd_dkv")
 BWD_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
-# the bf16 backward's tensor-core kernels, as the profiler names them
-BWD_TC_SYMBOLS = ("flash_bwd_dq_tc", "flash_bwd_dkv_tc")
+# the bf16 forward's and backward's tensor-core kernels, as the profiler
+# names them
+TC_SYMBOLS = ("flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc")
 SAM_TRAIN_STEPS = 3
 # resnet34-UNet: 36 BatchNorms in the encoder, 10 in the decoder; the
 # kernel lane calls channel_sums once forward and once backward in each
@@ -203,8 +217,17 @@ SUMS_SHAPES = {"stem": (6, 64, 256, 256), "layer3": (6, 256, 32, 32),
 SUMS_TOL = 1e-5           # of sum |a| and of sum |a*b| per channel
 BENCH_TRAIN = (224, 128)  # bench.py's train half: 224^2, bs128
 LSR_TOL = {"lsr_fwd": 1e-5, "lsr_bwd": 2e-6}
-# flash kernel vs plain: max abs error over the plain output's max |value|
-FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+# flash kernel vs plain: max abs error over the plain output's max |value|.
+# fp32: both sides keep every value in fp32. bf16: the tensor-core kernel
+# rounds P to bf16 once, as the A operand of P V (as FlashAttention-2/3
+# and SDPA do), and the output once; the plain version rounds only the
+# output. An emulation of these rounding points on the CPU (tests/
+# test_torch_flash_fwd_rounding.py) lands within 7.7e-3 of max |plain| at
+# [2,256,64], [1,529,32] and [2,4096,64]. The training forward's bf16 lse
+# within FLASH_LSE_TOL absolute of the plain logsumexp (the backward
+# recomputes P from it).
+FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+FLASH_LSE_TOL = 1e-5
 # backward kernels vs plain, the same measure. In fp32 both sides keep
 # every value in fp32. In bf16 the tensor-core kernels round P and dS to
 # bf16 once each, as the A operands of dS K, P^T dO and dS^T Q (as
@@ -220,6 +243,27 @@ FLASH_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # tiles; the tensor-core backward's staged drel sums)
 FLASH_CASES = ((12, 64, 64, torch.float32), (12, 64, 64, torch.bfloat16),
                (2, 16, 32, torch.float32), (1, 23, 32, torch.bfloat16))
+# EDT shapes beside the path's [6,512,512]: frames before the letterbox,
+# classes that are ragged mod the split, one-block images, the largest side
+EDT_SHAPES = ((2, 400, 512), (3, 37, 53), (2, 1, 77), (1, 1, 1),
+              (1, 2048, 2048))
+# operations of one candidate of one pixel that 1+JFA needs, for the
+# operations bound: the candidate's offset to its seed (the neighbour's
+# offset plus (dy, dx), one paired add), its d^2 (a multiply and an FMA),
+# the compare and the select. csrc/edt.cu spends EDT_KERNEL_OPS beside its
+# shared load and store: on the int32 pipe the neighbour's row (1), its
+# bounds with the column's (2), the address (1) and the offset's select
+# (1); on the FP pipes the half2 add (1), the two conversions to fp32 (2),
+# the multiply and the FMA of d^2 (2), the compare (1) and d^2's select
+# (1); that mix is printed beside the bound, not used as one. The rate: an
+# SM issues 4 warp instructions a clock, 128 lanes
+EDT_OPS = 5
+EDT_KERNEL_OPS = 12
+OPS_PER_SM_CLOCK = 128
+EDT_MAX_LAUNCHES = 3
+# alternating cold-L2 pairs of each activation forward against its
+# PyTorch call
+ACT_PAIRS = 7
 SAM_FRAMES = ((1024, 1024),) * 3 + ((512, 512),)   # create_testset, hard
 SAM_GLOBAL_BLOCKS = 4
 # the loss zoo's kernels (cartseg_tpu_torch.losses) and their path shapes:
@@ -327,6 +371,51 @@ def sums_bound(a: torch.Tensor, b: torch.Tensor, same: bool) -> tuple:
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()
+    return float(out[0]) * 1e6
+
+
+def edt_bound(seeds: torch.Tensor, ops_a_candidate: int = EDT_OPS) -> tuple:
+    """The larger of the bytes (the seeds read once, the float distances
+    written once) at the HBM rate and the flood's operations,
+    `ops_a_candidate` a candidate, 8 candidates a step and pixel, at
+    OPS_PER_SM_CLOCK on every SM at the maximum SM clock."""
+    from cartseg_tpu_torch.ops.cuda.edt import jfa_steps
+
+    n, (_, H, W) = seeds.numel(), seeds.shape
+    t_bytes, _ = bytes_bound(5 * n)
+    ops = ops_a_candidate * 8 * len(jfa_steps(H, W)) * n
+    rate = (OPS_PER_SM_CLOCK * sm_clock_hz()
+            * torch.cuda.get_device_properties(0).multi_processor_count)
+    t_ops = ops / rate * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def edt_kernels_a_call(seeds: torch.Tensor, calls: int = 10) -> tuple:
+    """The device kernels one edt_batch_jfa call runs: each kernel's
+    launches over `calls` calls in the profiler's trace, over `calls` and
+    rounded (the profiler can drop an event at the edge of its window),
+    as a list of names, which must hold 1 to EDT_MAX_LAUNCHES launches;
+    and each kernel's mean device ms a launch."""
+    from cartseg_tpu_torch.ops.cuda.edt import edt_batch_jfa
+    from cartseg_tpu_torch.utils.profiling import device_kernels
+
+    edt_batch_jfa(seeds)
+    trace = device_kernels(lambda: edt_batch_jfa(seeds), calls)
+    ms = {demangle(n): us / c / 1e3 for n, (c, us) in trace.items()}
+    names = [demangle(n) for n, (c, _) in sorted(trace.items())
+             for _ in range(round(c / calls))]
+    if not 1 <= len(names) <= EDT_MAX_LAUNCHES:
+        raise AssertionError(f"{calls} edt calls ran the CUDA kernels "
+                             f"{trace}; want 1..{EDT_MAX_LAUNCHES} a call")
+    return names, ms
+
+
 def demangle(name: str) -> str:
     """A kernel's C++ name and template arguments, without its parameter
     list, where c++filt is at hand; else the symbol as it is."""
@@ -335,7 +424,8 @@ def demangle(name: str) -> str:
                              text=True, check=True).stdout.strip()
     except (OSError, subprocess.CalledProcessError):
         return name
-    return out.split("(anonymous namespace)::")[-1].split("(")[0]
+    name = out.replace("(anonymous namespace)::", "").split("(")[0]
+    return name.removeprefix("void ")
 
 
 def ptxas_report(text: str) -> list:
@@ -379,21 +469,14 @@ def cc_masks(rng: np.random.Generator) -> np.ndarray:
     return m
 
 
-def edt_seeds(rng: np.random.Generator) -> np.ndarray:
-    """[6,512,512] bool: the GT boundaries of blob masks (as
-    losses/abl.py gt2boundary makes them), then a sample with no seed,
-    one with a single seed and one with every pixel a seed."""
-    from cartseg_tpu_torch.utils.synthetic import blob_masks
+def edt_plan_text(shape) -> str:
+    from cartseg_tpu_torch.ops.cuda.edt import plan
 
-    m = blob_masks(rng, (TRAIN_BS, S, S), n=6)
-    seeds = np.zeros_like(m)
-    seeds[:, :-1] |= m[:, :-1] != m[:, 1:]
-    seeds[:, :, :-1] |= m[:, :, :-1] != m[:, :, 1:]
-    seeds[3] = False
-    seeds[4] = False
-    seeds[4, 137, 401] = True
-    seeds[5] = True
-    return seeds
+    p = plan(*shape[1:])
+    if not p.steps_b:
+        return f"split {p.split}, one launch"
+    return (f"split {p.split}, tiles {p.tile} halo {p.halo}, steps "
+            f"{list(p.steps_a)} | {list(p.steps_b)}")
 
 
 def lsr_inputs(dev):
@@ -470,11 +553,19 @@ def phase_compare(frames: np.ndarray, dev) -> dict:
     from cartseg_tpu_torch.ops.cuda.edt import edt_batch_jfa, edt_batch_plain
     from cartseg_tpu_torch.ops.cuda.lsr import (lsr_bwd, lsr_bwd_plain,
                                                 lsr_fwd, lsr_fwd_plain)
+    from cartseg_tpu_torch.utils.synthetic import edt_seeds
 
-    seeds = torch.from_numpy(edt_seeds(rng)).to(dev)
+    seeds = torch.from_numpy(edt_seeds(rng, (TRAIN_BS, S, S))).to(dev)
+    got = edt_batch_jfa(seeds)
     err["edt"] = check_equal("edt [6,512,512] (GT boundaries|none|single|"
-                             "all)", edt_batch_jfa(seeds),
-                             edt_batch_plain(seeds))
+                             "all)", got, edt_batch_plain(seeds))
+    check_equal("edt [6,512,512] second call", edt_batch_jfa(seeds), got)
+    for shape in EDT_SHAPES:
+        s = torch.from_numpy(edt_seeds(rng, shape)).to(dev)
+        got = edt_batch_jfa(s)
+        check_equal(f"edt {list(shape)} (plan {edt_plan_text(shape)})", got,
+                    edt_batch_plain(s))
+        check_equal(f"edt {list(shape)} second call", edt_batch_jfa(s), got)
     x, lab, _ = lsr_inputs(dev)
     ones = torch.ones(x.shape[0], device=dev)
     for name, got, want in (
@@ -797,9 +888,11 @@ def device_ms(fn, n: int, match: str = "", cold: bool = False) -> float:
     buffer zeroed; its fill kernel is left out of the sum), as a caller
     whose inputs come from device memory finds it; back to back, a
     25.2M-element activation reads part of its 201 MB from the L2 the
-    previous call left and runs faster than the HBM bound."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    previous call left and runs faster than the HBM bound. The profiler
+    can drop events from its window (runs on an H100 read 0 and a fifth
+    of an activation's time): a window with no kernel of fn is taken
+    again, at most three times, and each kernel's launches count whole."""
+    from cartseg_tpu_torch.utils.profiling import device_kernels
 
     call = fn
     if cold:
@@ -810,16 +903,18 @@ def device_ms(fn, n: int, match: str = "", cold: bool = False) -> float:
             fn()
 
     call()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            call()
-        torch.cuda.synchronize()
-    total = sum(e.time_range.elapsed_us() for e in prof.events()
-                if e.device_type == DeviceType.CUDA and match in e.name
-                and not (cold and "FillFunctor" in e.name))
-    return total / n / 1e3
+    for _ in range(3):
+        trace = device_kernels(call, n)
+        hits = [(c, us) for name, (c, us) in trace.items()
+                if match in name and not (cold and "FillFunctor" in name)]
+        if hits:
+            break
+    else:
+        raise AssertionError(f"the profiler's traces of {n} calls held no "
+                             f"kernel of fn three times: {trace}")
+    # each kernel runs a fixed count a call: its time is its mean over the
+    # launches the trace holds times that count, ceil(launches / n)
+    return sum(us / c * -(-c // n) for c, us in hits) / 1e3
 
 
 def phase_train_timing(dev, card: str, hist) -> dict:
@@ -911,7 +1006,13 @@ def phase_train_timing(dev, card: str, hist) -> dict:
         f"host sync, 48 train / 12 val images): "
         f"{[h['images_per_sec'] for h in hist]} [{card}]")
     outs = {name: kern() for name, (kern, _) in cases.items()}
-    bounds = {"edt": bytes_bound(nbytes(seeds, outs["edt"])),
+    names, stage_ms = edt_kernels_a_call(seeds)
+    log(f"  edt [6,512,512] (the step's GT boundaries; plan "
+        f"{edt_plan_text(seeds.shape)}): {len(names)} CUDA kernels a call "
+        f"({', '.join(names)}; the old schedule ran 82); device ms a launch "
+        f"(profiler): " + ", ".join(f"{n} {t:.4f}" for n, t in
+                                     stage_ms.items()) + f" [{card}]")
+    bounds = {"edt": edt_bound(seeds),
               "lsr_fwd": bytes_bound(nbytes(x, lab, outs["lsr_fwd"])),
               "lsr_bwd": bytes_bound(nbytes(x, lab, g, outs["lsr_bwd"]))}
     # LSR forward == cross-entropy against the smoothed one-hot as
@@ -929,8 +1030,17 @@ def phase_train_timing(dev, card: str, hist) -> dict:
         f"(max abs diff to the kernel "
         f"{float((ce - outs['lsr_fwd']).abs().max()):.2e}); edt, lsr_bwd: "
         f"no single PyTorch call [{card}]")
+    mix_ms = edt_bound(seeds, EDT_KERNEL_OPS)[0]
+    log(f"  edt: bytes bound {bytes_bound(nbytes(seeds, outs['edt']))[0]:.5f}"
+        f" ms; operations bound ({EDT_OPS} operations a candidate, "
+        f"{OPS_PER_SM_CLOCK} an SM a clock at "
+        f"{sm_clock_hz() / 1e6:.0f} MHz) {bounds['edt'][0]:.5f} ms; the "
+        f"kernel's own instruction mix ({EDT_KERNEL_OPS} a candidate) at "
+        f"that rate {mix_ms:.5f} ms, kernel at {mix_ms / times['edt'][0]:.3f}"
+        f" of it [{card}]")
     for name, (b, by) in bounds.items():
-        log(f"  {name}: bound {b:.5f} ms ({by}, {HBM_BYTES_PER_S:.3g} B/s)")
+        log(f"  {name}: bound {b:.5f} ms ({by}), kernel at "
+            f"{b / times[name][0]:.3f} of it")
     build.reset_launch_counts()
     return {"step_ms": step_ms, "kernels": times, "bounds": bounds,
             "library": library}
@@ -1274,9 +1384,12 @@ def flash_inputs(bnh: int, g: int, hd: int, dtype, dev) -> list:
     return [t.to(dtype).to(dev) for t in ts]
 
 
-def phase_compare_flash(dev) -> float:
-    """flash_fwd against its plain version: the ViT-B global block
-    [12,4096,64] in fp32 and bf16, and the tests' [2,256,32] fp32."""
+def phase_compare_flash(dev) -> dict:
+    """The forward against its plain version at FLASH_CASES: the ViT-B
+    global block [12,4096,64] in fp32 (flash_fwd, CUDA cores) and bf16
+    (flash_fwd_tc, tensor cores), the tests' [2,256,32] fp32 and a ragged
+    [1,529,32] bf16; the same bits on a second call. Returns the max abs
+    error per case."""
     from cartseg_tpu_torch.ops.cuda.flash_attention import (
         flash_relpos_fwd, flash_relpos_fwd_plain)
 
@@ -1284,18 +1397,21 @@ def phase_compare_flash(dev) -> float:
     for bnh, g, hd, dt in FLASH_CASES:
         ts = flash_inputs(bnh, g, hd, dt, dev)
         got = flash_relpos_fwd(*ts, hd ** -0.5, g)
+        same = torch.equal(got, flash_relpos_fwd(*ts, hd ** -0.5, g))
         torch.cuda.synchronize()
         want = flash_relpos_fwd_plain(*ts, hd ** -0.5, g)
         err = float((got.float() - want.float()).abs().max())
         rel = err / float(want.float().abs().max())
-        if got.dtype != dt or not rel <= FLASH_TOL[dt]:
-            raise AssertionError(f"flash_fwd [{bnh},{g * g},{hd}] {dt}: "
+        if got.dtype != dt or not rel <= FLASH_TOL[dt] or not same:
+            raise AssertionError(f"flash forward [{bnh},{g * g},{hd}] {dt}: "
                                  f"max abs err {err} = {rel} of max |plain|"
-                                 f" (tolerance {FLASH_TOL[dt]})")
-        log(f"  flash_fwd [{bnh},{g * g},{hd}] {dt}: max abs err {err:.3e}"
-            f" = {rel:.3e} of max |plain| (tolerance {FLASH_TOL[dt]})")
+                                 f" (tolerance {FLASH_TOL[dt]}); the same "
+                                 f"bits twice: {same}")
+        log(f"  flash forward [{bnh},{g * g},{hd}] {dt}: max abs err "
+            f"{err:.3e} = {rel:.3e} of max |plain| (tolerance "
+            f"{FLASH_TOL[dt]}); the same bits twice")
         errs[(bnh, g, hd, dt)] = err
-    return errs[FLASH_CASES[0]]
+    return errs
 
 
 def phase_compare_flash_bwd(dev) -> dict:
@@ -1319,11 +1435,16 @@ def phase_compare_flash_bwd(dev) -> dict:
         out, lse = flash_relpos_fwd(*ts, scale, g, with_lse=True)
         same = torch.equal(out, flash_relpos_fwd(*ts, scale, g))
         _, lse_plain = flash_relpos_fwd_lse_plain(*ts, scale, g)
-        lrel = float((lse - lse_plain).abs().max() / lse_plain.abs().max())
-        if not same or not lrel <= 1e-5:
+        labs = float((lse - lse_plain).abs().max())
+        lrel = labs / float(lse_plain.abs().max())
+        # the tensor-core forward's lse: absolute, the backward's input
+        tc = dt == torch.bfloat16
+        lok = labs <= FLASH_LSE_TOL if tc else lrel <= 1e-5
+        ltol = f"abs {FLASH_LSE_TOL}" if tc else "rel 1e-5"
+        if not same or not lok:
             raise AssertionError(f"training forward [{bnh},{g * g},{hd}] {dt}"
-                                 f": out equal to inference {same}, lse rel "
-                                 f"err {lrel}")
+                                 f": out equal to inference {same}, lse abs "
+                                 f"err {labs}, rel {lrel}")
         delta = row_delta(out, do)
         dq, drh, drw = flash_bwd_dq(*ts, do, lse, delta, scale, g)
         dk, dv = flash_bwd_dkv(*ts, do, lse, delta, scale, g)
@@ -1343,8 +1464,9 @@ def phase_compare_flash_bwd(dev) -> dict:
             log(f"  flash backward {name} [{bnh},{g * g},{hd}] {dt}: max abs "
                 f"err {err:.3e} = {rel:.3e} of max |plain| (tolerance "
                 f"{FLASH_BWD_TOL[dt]})")
-        log(f"  training forward [{bnh},{g * g},{hd}] {dt}: lse rel err "
-            f"{lrel:.3e}, out == the inference call's, bit for bit")
+        log(f"  training forward [{bnh},{g * g},{hd}] {dt}: lse abs err "
+            f"{labs:.3e}, rel {lrel:.3e} (tolerance {ltol}), out == the "
+            f"inference call's, bit for bit")
         errs[(bnh, g, hd, dt)] = {
             "flash_bwd_dq": max(per["dq"], per["drel_h"], per["drel_w"]),
             "flash_bwd_dkv": max(per["dk"], per["dv"])}
@@ -1692,19 +1814,9 @@ def phase_sam_train(tmp: Path, dev) -> dict:
 def device_op_ms(fn) -> dict:
     """ms of each device kernel or copy, by name, summed over its launches
     in one call of fn (profiler)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from cartseg_tpu_torch.utils.profiling import device_kernels
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    ms = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            ms[e.name] = ms.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    return ms
+    return {name: us / 1e3 for name, (_, us) in device_kernels(fn).items()}
 
 
 def top_device_ops(fn, n_top: int = 8, ms: dict = None) -> tuple:
@@ -1840,16 +1952,19 @@ def phase_sam_timing(pred, frames, dev, card: str) -> dict:
 
 def phase_sam_train_timing(train: dict, dev, card: str) -> dict:
     """The fine-tune step for the flash and the plain lane (bf16), the
-    global blocks' share of it, the device's busy share, and
-    flash_bwd_dq / flash_bwd_dkv against their plain versions and the
-    library composite at the inputs the step gives them, bf16 and fp32."""
+    global blocks' share of it, the device's busy share, its profile
+    (which must name the three tensor-core kernels), the bf16 training
+    forward (flash_fwd_tc) and flash_bwd_dq / flash_bwd_dkv against their
+    plain versions and the library calls at the inputs the step gives
+    them, the backward in bf16 and fp32."""
     import torch.nn.functional as F
 
     from cartseg_tpu_torch.ops import flash_attention as fa
     from cartseg_tpu_torch.ops.cuda import build
     from cartseg_tpu_torch.ops.cuda.flash_attention import (
         flash_bwd_dkv, flash_bwd_dkv_plain, flash_bwd_dq, flash_bwd_dq_plain,
-        flash_relpos_bwd_plain, flash_relpos_fwd, row_delta)
+        flash_relpos_bwd_plain, flash_relpos_fwd, flash_relpos_fwd_lse_plain,
+        row_delta)
 
     model, x = train["model"], train["x"]
     plain = sam_train_model(train["ckpt"], False, torch.bfloat16, dev)
@@ -1867,11 +1982,11 @@ def phase_sam_train_timing(train: dict, dev, card: str) -> dict:
         f"{total:.3f} ms of kernels and copies): " + "; ".join(
             f"{name[:70]} {ms:.3f}" for name, ms in rows))
     tc = {sym: sorted((ms, n) for n, ms in ops.items() if sym in n)
-          for sym in BWD_TC_SYMBOLS}
+          for sym in TC_SYMBOLS}
     if not all(tc.values()):
         raise AssertionError(f"the bf16 step's profile names no "
                              f"{[k for k, v in tc.items() if not v]} kernel")
-    log("  the bf16 backward's tensor-core kernels in the step's profile: "
+    log("  the bf16 tensor-core kernels in the step's profile: "
         + "; ".join(f"{n[:60]} {ms:.3f} ms" for found in tc.values()
                     for ms, n in found))
 
@@ -1942,6 +2057,31 @@ def phase_sam_train_timing(train: dict, dev, card: str) -> dict:
         lerr = max(float((a.float() - b.float()).abs().max())
                    for a, b in zip(lib(), ref))
         if dt == torch.bfloat16:
+            # the training forward, with lse, as the step calls it
+            fbias = bias.detach()
+
+            def fwd():
+                return flash_relpos_fwd(*ts, scale, g, with_lse=True)
+
+            def fwd_plain():
+                return flash_relpos_fwd_lse_plain(*ts, scale, g)
+
+            def fwd_lib():
+                return F.scaled_dot_product_attention(
+                    ts[0], ts[1], ts[2], attn_mask=fbias, scale=scale)
+
+            pa = cuda_ms(fwd_plain, 3)
+            ka = cuda_ms(fwd, 20)
+            la = cuda_ms(fwd_lib, 20)
+            kb = cuda_ms(fwd, 20)
+            pb = cuda_ms(fwd_plain, 3)
+            b, by = flash_bound(ts[0], ts[3])
+            fwd_row = ((ka + kb) / 2, (pa + pb) / 2, la, b, by)
+            log(f"  flash_fwd_tc [{bnh},{S},{hd}] bf16 (the step's inputs, "
+                f"with lse): kernel {ka:.4f}/{kb:.4f} ms, plain {pa:.4f}/"
+                f"{pb:.4f} ms, F.scaled_dot_product_attention with the bias "
+                f"built beforehand {la:.4f} ms; bound {b:.5f} ms ({by}), "
+                f"kernel at {b / fwd_row[0]:.3f} of it [{card}]")
             (dq, drh, drw), (dk, dv) = (flash_bwd_dq(*args),
                                         flash_bwd_dkv(*args))
             dist = bwd_f64_distances(ts, do, scale, g, {
@@ -1977,7 +2117,8 @@ def phase_sam_train_timing(train: dict, dev, card: str) -> dict:
             f"[{card}]")
         out[dt] = res
     build.reset_launch_counts()
-    return {"step_ms": step_ms, "plain_ms": plain_ms, "kernels": out}
+    return {"step_ms": step_ms, "plain_ms": plain_ms, "kernels": out,
+            "fwd": fwd_row}
 
 
 # ------------------------------------------------------------ the loss zoo
@@ -2398,6 +2539,31 @@ def phase_zoo_timing(dev, card: str) -> dict:
                 f"backward under autograd, device time (L2 flushed) "
                 f"{device_ms(lib_both, 10, cold=True):.5f} ms [{card}]")
             del x, g, xr
+    # each forward against its PyTorch call in ACT_PAIRS alternating pairs
+    # (kernel first in the even pairs, the library in the odd), L2 flushed
+    # before each call: medians, and the spread of each series as
+    # (max - min) / median
+    x, _ = act_inputs(ACT_SHAPES[0], dev, SEED)
+    for kind in ACT_KINDS:
+        fwd_lib = libs[kind][0]
+        series = {"kernel": [], "library": []}
+        for i in range(ACT_PAIRS):
+            order = ("kernel", "library") if i % 2 == 0 else ("library",
+                                                              "kernel")
+            for who in order:
+                series[who].append(
+                    device_ms(lambda: act_fwd(x, kind), 10, "act_fwd",
+                              cold=True) if who == "kernel" else
+                    device_ms(lambda: fwd_lib(x), 10, cold=True))
+        med = {w: float(np.median(v)) for w, v in series.items()}
+        spread = max((max(v) - min(v)) / med[w] for w, v in series.items())
+        gap = (med["kernel"] - med["library"]) / med["library"]
+        log(f"  {kind}_fwd {list(ACT_SHAPES[0])} vs F.{libs[kind][2]}, "
+            f"{ACT_PAIRS} alternating cold-L2 pairs: median kernel "
+            f"{med['kernel']:.5f} ms, library {med['library']:.5f} ms, the "
+            f"kernel {gap:+.4f} relative; spread {spread:.4f}; loses by more "
+            f"than the spread: {gap > spread} [{card}]")
+    del x
     build.reset_launch_counts()
     return rows
 
@@ -2450,6 +2616,28 @@ def phase_boundary_timing(dev, card: str) -> dict:
     if edt_per_step != 4:
         raise AssertionError(f"{edt_per_step} edt launches in a boundary "
                              "step, want 4")
+    # the EDT on the SDF's inputs: the step's masks and their complement
+    from cartseg_tpu_torch.ops.cuda.edt import edt_batch_jfa, edt_batch_plain
+
+    edt_ms = 0.0
+    for what, m in (("mask", masks[..., 0] > 0.5),
+                    ("complement", masks[..., 0] <= 0.5)):
+        m = m.contiguous()
+        check_equal(f"edt on the SDF's {what} [6,512,512]", edt_batch_jfa(m),
+                    edt_batch_plain(m))
+        p1 = cuda_ms(lambda: edt_batch_plain(m), 5)
+        k1 = cuda_ms(lambda: edt_batch_jfa(m), 20)
+        k2 = cuda_ms(lambda: edt_batch_jfa(m), 20)
+        p2 = cuda_ms(lambda: edt_batch_plain(m), 5)
+        b, by = edt_bound(m)
+        names, _ = edt_kernels_a_call(m)
+        edt_ms += (k1 + k2) / 2
+        log(f"  edt on the SDF's {what}: kernel {k1:.4f}/{k2:.4f} ms, plain "
+            f"{p1:.4f}/{p2:.4f} ms, {len(names)} CUDA kernels a call; bound "
+            f"{b:.5f} ms ({by}), kernel at {2 * b / (k1 + k2):.3f} of it "
+            f"[{card}]")
+    log(f"  the step's 4 EDTs ~{2 * edt_ms:.4f} ms, {2 * edt_ms / step_ms:.4f}"
+        f" of the step [{card}]")
     build.reset_launch_counts()
     return {"step_ms": step_ms, "bce_ms": bce_ms, "busy": busy}
 
@@ -2485,7 +2673,9 @@ def main() -> int:
 
         log("phase 3: kernels against their plain versions")
         errs = phase_compare(frames, dev)
-        errs["flash_fwd"] = phase_compare_flash(dev)
+        fwd_errs = phase_compare_flash(dev)
+        errs["flash_fwd"] = fwd_errs[FLASH_CASES[0]]
+        errs["flash_fwd_tc"] = fwd_errs[FLASH_CASES[1]]
         bwd_errs = phase_compare_flash_bwd(dev)
         errs.update(bwd_errs[FLASH_CASES[1]])
         errs["channel_sums"] = phase_compare_channel_sums(dev)
@@ -2537,7 +2727,12 @@ def main() -> int:
     times["flash_fwd"] = (f_ms, f_plain)
     bounds["flash_fwd"] = (f_b, f_by)
     library["flash_fwd"] = f_lib
-    # the backward kernels' rows: the fine-tune step's bf16 inputs
+    # the bf16 forward's and the backward kernels' rows: the fine-tune
+    # step's bf16 inputs
+    launches["flash_fwd_tc"] = sam_train["launches"]["flash_fwd_tc"]
+    ms, plain, lib, b, by = sam_train_timing["fwd"]
+    times["flash_fwd_tc"] = (ms, plain)
+    bounds["flash_fwd_tc"], library["flash_fwd_tc"] = (b, by), lib
     for k in BWD_KERNELS:
         launches[k] = sam_train["launches"][k]
         ms, plain, lib, b, by = sam_train_timing["kernels"][torch.bfloat16][k]
