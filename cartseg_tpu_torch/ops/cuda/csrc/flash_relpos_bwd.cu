@@ -17,428 +17,673 @@
 // rebuilds its 64x64 tiles of them from Q, K, V, dO and the bias factors.
 //
 // Two routes, chosen by the inputs' type in the C entry points below:
-// - float32, this file: the exactness lane. Products, exp and sums run in
-//   fp32 on the CUDA cores (TF32 would not keep the flash lane within
-//   1e-4 of the plain lane), outputs in fp32.
+// - float32, this file: the exactness lane, on the tensor cores as split
+//   TF32 ("3xTF32") products (`flash_bwd_dq_tf32x3`,
+//   `flash_bwd_dkv_tf32x3`); P, dS, the softmax and every sum in fp32,
+//   outputs in fp32.
 // - bfloat16: flash_relpos_bwd_tc.cu, wgmma on the tensor cores, P and dS
 //   rounded to bf16 as the second products' operands.
 //
-// Design of the float32 route (simple first, as the forward): 256 threads
-// per block; thread
-// (ty, tx) of the 16x16 grid holds a 4x4 register tile of the logits,
-// fed with float4 reads from padded shared-memory rows.
-// - flash_bwd_dq: one block per (bnh, 64 query rows), streaming 64-key
-//   tiles of K and V. dq accumulates in registers (4 rows x HD/16
-//   columns a thread). The TPU kernel summed dS into drel with 0/1
-//   selector matmuls; here a tile's dS is staged in shared memory and
-//   summed into [64, g] fp32 drel_h / drel_w accumulators, also in shared
-//   memory. Thread (row = tid/4, part = tid%4) does it: a (row, kh) sum
-//   is the run of the tile's keys on grid row kh, split over the row's 4
-//   threads and joined by two shuffles; a (row, kw) sum belongs to the
-//   thread with kw % 4 == part. Every accumulator has one writer and a
-//   fixed order of additions.
-// - flash_bwd_dkv: one block per (bnh, 64-key tile), streaming 64-query
-//   tiles of Q, dO, lse, D and the rows' bias factors: the TPU kernel's
-//   grid over key tiles (:316-340) with its query loop inside the block.
-//   Thread (ty, tx) holds P^T and dS^T for keys 4ty..4ty+3 and queries
-//   tx + 16j, stages them in shared memory, and accumulates its 4 keys'
-//   dk and dv rows in registers.
-// Each output element is written by one block, with no atomics, so the
-// gradients are the same bits from run to run. Keys and queries past S
-// are masked (P = 0), so every g that the forward takes works here too.
+// Split TF32. One TF32 product keeps 10 of fp32's 23 mantissa bits and
+// would move the gradients ~1e-3 from the plain version. So each fp32
+// operand x is cut into hi = tf32(x) and lo = tf32(x - hi), both rounded
+// to nearest with ties away from zero (the bits plus 0x1000, the low 13
+// bits cleared: cvt.rna.tf32.f32 for finite x), and a product is
+// hi_a lo_b + lo_a hi_b + hi_a hi_b on mma.sync m16n8k8 tf32 into one
+// fp32 accumulator, the small terms first (CUTLASS's
+// OpMultiplyAddFastF32, which PyTorch's fp32 memory-efficient attention
+// runs too). hi + lo holds x to ~2^-22 of it and the dropped lo_a lo_b is
+// ~2^-22 of the product, near fp32's own 2^-24.
+// tests/test_torch_flash_bwd_tf32x3.py emulates this arithmetic on the CPU
+// against the plain version and JAX.
+//
+// Design
+// - 128 threads (4 warps) a block; the block owns one 64-row tile (its
+//   query rows in dq, its keys in dkv), and warp w its rows 16w..16w+15.
+//   Every product is the warp's m16n8k8 tiles: the first products over
+//   head_dim (dq: S = Q K^T, dP = dO V^T; dkv: S^T = K Q^T, dP^T = V dO^T)
+//   give each warp 16 rows x 64 columns in the accumulators' fragment
+//   layout, where P and dS are made in place in fp32; the second products
+//   (dq: dQ += dS K; dkv: dV += P^T dO, dK += dS^T Q) take those
+//   accumulators as their A operands without moving them between
+//   threads: the k index of an m16n8k8 A fragment is read as columns
+//   (2t, 2t + 1), the accumulator's pair, and B is gathered with the same
+//   order. The first products read head_dim in the same pairs, so every
+//   fragment read of the first products is one 8-byte load.
+// - Tiles stay fp32 in shared memory ([64][HD + 8], column blocks of 8
+//   swapped in rows with bit 2 set), free of bank conflicts both ways they
+//   are read; operands are split into hi and lo in registers where they
+//   are read. What a block streams (K and V in dq; Q, dO and the rows'
+//   lse, D and rel_h in dkv) goes through a 2-stage ring of cp.async
+//   copies: tile t + 1 is copied while tile t is multiplied.
+// - Two blocks (8 warps) an SM at SAM's shape: dq's Q, dO and two stages
+//   of K and V take 108 KB, dkv's K, V and two stages of Q, dO and the
+//   rows 110 KB. Where a stage of the [64, g] bias factors would not fit
+//   beside that, the factors come from device memory (L1 and L2) into
+//   registers: in dq at g = 64 the block's rel_w columns once (with -lse,
+//   fixed for the block) and one rel_h value a row and tile; in dkv at
+//   g = 64 each tile's rel_w[query, kw], loaded at the top of the tile,
+//   ahead of the products that hide its latency. Any other g reads both
+//   factors there for each logit.
+// - drel in dq: at g = 64 (SAM at 1024^2, S = 4096, no ragged edge) a
+//   64-key tile is exactly grid row kh, so its drel_h[:, kh] is a row sum
+//   of dS (the thread's 16 columns, then two quad shuffles), written by one
+//   lane, and drel_w is dS itself, summed over the tiles in registers of
+//   the fragment's layout. Any other g stages each tile's dS in shared
+//   memory and sums it into [64, g] accumulators there: one owner per
+//   accumulator, a fixed order of additions.
+// Every output element has one writer and there are no atomics, so a
+// second run gives the same bits. Keys and queries past S give P = 0.
 //
 // Bound on this card: operations. At [12,4096,64] one product is
-// 2*12*4096^2*64 = 25.8 GFLOP; dq needs 3 (q k^T, dO v^T, dS K) and dkv 4
-// (q k^T, dO v^T, P^T dO, dS^T Q): 1.15 and 1.54 ms at the 67 TFLOP/s fp32
-// CUDA-core peak, against ~0.06 ms of fp32 memory traffic. The products
-// run as fp32 FMAs on the CUDA cores, one block an SM (the fp32 tiles take
-// 140-157 KB of shared memory at g = 64).
+// 2*12*4096^2*64 = 25.8 GFLOP; dq does 3 and dkv 4. Each takes 3 TF32
+// products: 0.4685 and 0.6247 ms at 495 TFLOP/s dense TF32
+// (chip_smoke.bwd_bound); one fp32 product each at the 67 TFLOP/s CUDA-core
+// peak would take 1.15 and 1.54 ms. Beside the tensor cores each kernel
+// spends, for every operand value it reads, two roundings and a subtract
+// on the integer and FP32 pipes, and for every logit an exp2 on the SFUs.
 
-#include <type_traits>
+#include <stdint.h>
 
-#include "flash_relpos_common.cuh"
+#include "flash_tc_common.cuh"
 
 namespace {
 
-using namespace flash_relpos;
+using flash_tc::cp16;
+using flash_tc::cp_commit;
+using flash_tc::cp_wait_all;
+using flash_tc::kLog2e;
+using flash_tc::smem_u32;
 
+constexpr int kR = 64;         // rows of a tile: queries (dq), keys (dkv)
+constexpr int kThreads = 128;  // 4 warps, 16 rows of the tile each
+constexpr int kDst = kR + 4;   // row stride of the staged fp32 dS tile
 constexpr unsigned kFull = 0xffffffffu;
 
-template <int HD>
-size_t dq_smem_bytes(int g) {
-  const int tiles = 4 * kBQ * row_stride<HD>();   // q, dO, k, v
-  const int ds = kBQ * (kBK + 4);
-  const int rel = 4 * kBQ * rel_stride(g);        // rel_h, rel_w, 2 grads
-  return sizeof(float) * (size_t)(tiles + ds + rel);
+// row stride of the fp32 [64, g] drel accumulators
+__host__ __device__ __forceinline__ int acc_stride(int g) {
+  return g + (12 - g % 8) % 8;
 }
 
+// ------------------------------------------------------------------ tiles
+
+// A [64][HD] fp32 tile: rows HD + 8 floats apart (8 banks mod 32), and in
+// rows with bit 2 set column d stored at d ^ 8. A warp's reads are then
+// free of bank conflicts both ways the kernels read a tile: columns
+// (d, d + 1) of rows 8j + g as one 8-byte load (the first products), and
+// column d of rows 8c + 2t and 8c + 2t + 1 (the second products' B).
 template <int HD>
-size_t dkv_smem_bytes(int g) {
-  const int tiles = 4 * kBQ * row_stride<HD>();   // k, v, q, dO
-  const int pd = 2 * kBK * (kBQ + 4);             // P^T, dS^T
-  const int rel = 2 * kBQ * rel_stride(g);
-  return sizeof(float) * (size_t)(tiles + pd + rel + 2 * kBQ);
+struct Tile {
+  static constexpr int kStride = HD + 8;
+  static constexpr int kFloats = kR * kStride;
+};
+template <int HD>
+__device__ __forceinline__ int at(int r, int d) {
+  return r * Tile<HD>::kStride + (d ^ ((r & 4) << 1));
 }
 
+// rows [r0, r0 + 64) of a [S, HD] fp32 slice into a tile, zeros past S
 template <int HD>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, const float* __restrict__ rel_h,
-             const float* __restrict__ rel_w, const float* __restrict__ dout,
-             const float* __restrict__ lse, const float* __restrict__ delta,
-             float* __restrict__ dq, float* __restrict__ drel_h,
-             float* __restrict__ drel_w, int S, int g, float scale) {
-  constexpr int ST = row_stride<HD>();
-  constexpr int DST = kBK + 4;
-  constexpr int CD = HD / 16;  // dq columns per thread
-  static_assert(HD % 16 == 0 && (CD == 2 || CD == 4), "head_dim 32 or 64");
-  const int RST = rel_stride(g);
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          int r0, int S) {
+  constexpr int C = HD / 4;  // 16-byte chunks a row
+  const uint32_t d0 = smem_u32(dst);
+#pragma unroll
+  for (int j = 0; j < kR * C / kThreads; ++j) {
+    const int e = threadIdx.x + j * kThreads, r = e / C, d = (e % C) * 4;
+    const bool ok = r0 + r < S;
+    cp16(d0 + 4 * at<HD>(r, d), ok ? src + (size_t)(r0 + r) * HD + d : src,
+         ok ? 16 : 0);
+  }
+}
 
+// one float to shared memory, or a zero
+__device__ __forceinline__ void cp4(uint32_t dst, const float* src,
+                                    bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+// ------------------------------------------------------- split TF32 mma
+
+// x rounded to TF32, to nearest, ties away from zero; the low 13 bits 0
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+struct FragA {  // an m16n8k8 A operand: a0 (g, t), a1 (g+8, t), a2 (g,
+  uint32_t hi[4], lo[4];  // t+4), a3 (g+8, t+4), each x = hi + lo
+};
+struct FragB {  // a B operand: b0 (k t, n g), b1 (k t+4, n g)
+  uint32_t hi[2], lo[2];
+};
+
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+__device__ __forceinline__ FragA split_a(float a0, float a1, float a2,
+                                         float a3) {
+  FragA f;
+  split(a0, f.hi[0], f.lo[0]);
+  split(a1, f.hi[1], f.lo[1]);
+  split(a2, f.hi[2], f.lo[2]);
+  split(a3, f.hi[3], f.lo[3]);
+  return f;
+}
+__device__ __forceinline__ FragB split_b(float b0, float b1) {
+  FragB f;
+  split(b0, f.hi[0], f.lo[0]);
+  split(b1, f.hi[1], f.lo[1]);
+  return f;
+}
+
+// D (16 x 8, fp32) += A (16 x 8, tf32) . B (8 x 8, tf32)
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+// d += a b in split TF32: hi lo and lo hi, then hi hi
+__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
+                                     const FragB& b) {
+  mma_tf32(d, a.hi, b.lo);
+  mma_tf32(d, a.lo, b.hi);
+  mma_tf32(d, a.hi, b.hi);
+}
+
+// The accumulator of an m16n8 tile: thread (g = lane / 4, t = lane % 4)
+// holds x[0] (row g, column 2t), x[1] (g, 2t + 1), x[2] (g + 8, 2t) and
+// x[3] (g + 8, 2t + 1). Read as an A operand whose k index t is column 2t
+// and t + 4 is 2t + 1, it needs no shuffle:
+__device__ __forceinline__ FragA a_acc(const float (&x)[4]) {
+  return split_a(x[0], x[2], x[1], x[3]);
+}
+// A of a first product: rows ra and ra + 8 of a tile, columns (d, d + 1)
+// as k indices t and t + 4
+template <int HD>
+__device__ __forceinline__ FragA a_rows(const float* x, int ra, int d) {
+  const float2 u = *reinterpret_cast<const float2*>(x + at<HD>(ra, d));
+  const float2 w = *reinterpret_cast<const float2*>(x + at<HD>(ra + 8, d));
+  return split_a(u.x, w.x, u.y, w.y);
+}
+// B of a first product: columns (d, d + 1) of a tile's row r
+template <int HD>
+__device__ __forceinline__ FragB b_row(const float* y, int r, int d) {
+  const float2 u = *reinterpret_cast<const float2*>(y + at<HD>(r, d));
+  return split_b(u.x, u.y);
+}
+// B of a second product: column d of a tile's rows r and r + 1
+template <int HD>
+__device__ __forceinline__ FragB b_col(const float* y, int r, int d) {
+  return split_b(y[at<HD>(r, d)], y[at<HD>(r + 1, d)]);
+}
+
+// The first products over head_dim: s = A B^T and p = C D^T for the
+// warp's rows ra, ra + 8 of the resident tiles A and C and the 64 rows of
+// the streamed tiles B and D (n-tile j: rows 8j + g).
+template <int HD>
+__device__ __forceinline__ void first_products(float (&s)[8][4],
+                                               float (&p)[8][4],
+                                               const float* a,
+                                               const float* b,
+                                               const float* c,
+                                               const float* d, int ra,
+                                               int gq, int tq) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[j][i] = p[j][i] = 0.f;
+#pragma unroll
+  for (int kc = 0; kc < HD / 8; ++kc) {
+    const int col = 8 * kc + 2 * tq;
+    const FragA fa = a_rows<HD>(a, ra, col), fc = a_rows<HD>(c, ra, col);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      mma3(s[j], fa, b_row<HD>(b, 8 * j + gq, col));
+      mma3(p[j], fc, b_row<HD>(d, 8 * j + gq, col));
+    }
+  }
+}
+
+// A second product: acc (the warp's 16 rows x HD) += x (its 16 x 64
+// accumulator tile, k = the 64 columns) . y (a [64][HD] tile). The tensor
+// cores add into an fp32 accumulator with truncation, whose bias grows with
+// the length of the chain; so the tile's product is summed from zero in
+// registers and added to acc on the FP32 pipes, rounded to nearest.
+template <int HD>
+__device__ __forceinline__ void second_product(float (&acc)[HD / 8][4],
+                                               const float (&x)[8][4],
+                                               const float* y, int gq,
+                                               int tq) {
+  float t[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) t[n][i] = 0.f;
+#pragma unroll
+  for (int kc = 0; kc < 8; ++kc) {
+    const FragA fa = a_acc(x[kc]);
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      mma3(t[n], fa, b_col<HD>(y, 8 * kc + 2 * tq, 8 * n + gq));
+  }
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] += t[n][i];
+}
+
+// -------------------------------------------------------------------- dq
+
+// shared memory: Q, dO, 2 stages of K and V; for g != 64 also the drel_h
+// and drel_w sums and the staged dS
+template <int HD>
+size_t dq_smem_bytes(int g, bool g64) {
+  size_t f = 6 * (size_t)Tile<HD>::kFloats;
+  if (!g64) f += 2 * (size_t)kR * acc_stride(g) + (size_t)kR * kDst;
+  return 4 * f;
+}
+
+template <int HD, bool G64>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_bwd_dq_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ rel_h,
+                    const float* __restrict__ rel_w,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dq,
+                    float* __restrict__ drel_h, float* __restrict__ drel_w,
+                    int S, int g, float scale) {
+  constexpr int T = Tile<HD>::kFloats, NC = HD / 8;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* qs = smem;                 // [BQ][ST]   query rows
-  float* dos = qs + kBQ * ST;       // [BQ][ST]   dO rows
-  float* ks = dos + kBQ * ST;       // [BK][ST]   key rows of a tile
-  float* vs = ks + kBK * ST;        // [BK][ST]   value rows of a tile
-  float* dss = vs + kBK * ST;       // [BQ][DST]  dS of a tile
-  float* rhs = dss + kBQ * DST;     // [BQ][RST]  rel_h rows of the block
-  float* rws = rhs + kBQ * RST;     // [BQ][RST]  rel_w rows of the block
-  float* ghs = rws + kBQ * RST;     // [BQ][RST]  drel_h accumulators
-  float* gws = ghs + kBQ * RST;     // [BQ][RST]  drel_w accumulators
+  float* sm = reinterpret_cast<float*>(smem4);
+  const float* qs = sm;        // the block's query rows
+  const float* dos = sm + T;   // their dO rows
+  const int AST = acc_stride(g);
+  float* ghs = sm + 6 * T;     // g != 64: [64][AST] drel_h sums
+  float* gws = ghs + kR * AST;  //          [64][AST] drel_w sums
+  float* dss = gws + kR * AST;  //          [64][kDst] a tile's dS
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int dr = tid >> 2, part = tid & 3;  // the drel sums' layout
-  const int q0 = blockIdx.x * kBQ;
-  const size_t base = (size_t)blockIdx.y * S * HD;
-  const size_t rbase = (size_t)blockIdx.y * S * g;
-  const size_t lbase = (size_t)blockIdx.y * S;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int ra = 16 * warp + gq;  // the thread's rows ra and ra + 8
+  const int q0 = blockIdx.x * kR, hh = blockIdx.y;
+  const size_t base = (size_t)hh * S * HD;
+  const size_t rel0 = ((size_t)hh * S + q0) * g;
 
-  load_rows<HD>(qs, q + base, q0, S);
-  load_rows<HD>(dos, dout + base, q0, S);
-  load_rel(rhs, rws, rel_h + rbase, rel_w + rbase, q0, S, g, RST);
-  for (int e = tid; e < kBQ * RST; e += kThreads) {
-    ghs[e] = 0.f;
-    gws[e] = 0.f;
+  load_tile<HD>(sm, q + base, q0, S);
+  load_tile<HD>(sm + T, dout + base, q0, S);
+  load_tile<HD>(sm + 2 * T, k + base, 0, S);
+  load_tile<HD>(sm + 4 * T, v + base, 0, S);
+  cp_commit();
+  if (!G64)
+    for (int e = tid; e < kR * AST; e += kThreads) ghs[e] = gws[e] = 0.f;
+
+  float lse2[2], dd[2];
+  bool rok[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = q0 + ra + 8 * hf;
+    rok[hf] = r < S;
+    lse2[hf] = rok[hf] ? lse[(size_t)hh * S + r] * kLog2e : 0.f;
+    dd[hf] = rok[hf] ? delta[(size_t)hh * S + r] : 0.f;
+  }
+  const float sl2 = scale * kLog2e;
+  float acc[NC][4], bw[8][4], gw[8][4];
+#pragma unroll
+  for (int n = 0; n < NC; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+  if (G64) {
+    // a tile's columns are kw: rel_w log2e - lse log2e, fixed for the block
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const float* w = rel_w + rel0 + (size_t)(ra + 8 * hf) * 64 + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 u = __ldg(reinterpret_cast<const float2*>(w + 8 * j));
+        bw[j][2 * hf] = u.x * kLog2e - lse2[hf];
+        bw[j][2 * hf + 1] = u.y * kLog2e - lse2[hf];
+        gw[j][2 * hf] = gw[j][2 * hf + 1] = 0.f;
+      }
+    }
   }
 
-  float lse_r[4], dd_r[4], acc[4][CD];
-  bool rok[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
-    rok[i] = r < S;
-    lse_r[i] = rok[i] ? lse[lbase + r] : 0.f;
-    dd_r[i] = rok[i] ? delta[lbase + r] : 0.f;
-#pragma unroll
-    for (int jj = 0; jj < CD; ++jj) acc[i][jj] = 0.f;
-  }
-
-  const int n_tiles = (S + kBK - 1) / kBK;
+  const int n_tiles = (S + kR - 1) / kR;
   for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBK;
-    const int nk = min(kBK, S - k0);
-    __syncthreads();  // the previous tile's ks / vs / dss reads are done
-    load_rows<HD>(ks, k + base, k0, S);
-    load_rows<HD>(vs, v + base, k0, S);
-    __syncthreads();
+    const int st = kt & 1, k0 = kt * kR;
+    const float* ks = sm + (2 + st) * T;
+    const float* vs = sm + (4 + st) * T;
+    cp_wait_all();
+    __syncthreads();  // tile kt has landed; tile kt - 1's stage is free
+    if (kt + 1 < n_tiles) {
+      load_tile<HD>(sm + (2 + (st ^ 1)) * T, k + base, k0 + kR, S);
+      load_tile<HD>(sm + (4 + (st ^ 1)) * T, v + base, k0 + kR, S);
+      cp_commit();
+    }
+    float rh2[2] = {0.f, 0.f};
+    if (G64)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        rh2[hf] = __ldg(rel_h + rel0 + (size_t)(ra + 8 * hf) * 64 + kt) *
+                  kLog2e;
 
-    // s = q . k and dp = dO . v over head_dim, 4 rows x 4 keys a thread
-    float s[4][4], dp[4][4];
+    float s[8][4], dp[8][4];
+    first_products<HD>(s, dp, qs, ks, dos, vs, ra, gq, tq);
+
+    // P and dS, in place of s; 0 past S
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < HD; d += 4) {
-      float4 a[4], ao[4], b[4], bv[4];
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        a[i] = *reinterpret_cast<const float4*>(qs + (ty * 4 + i) * ST + d);
-        ao[i] = *reinterpret_cast<const float4*>(dos + (ty * 4 + i) * ST + d);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        b[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * ST + d);
-        bv[j] = *reinterpret_cast<const float4*>(vs + (tx + 16 * j) * ST + d);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
-          s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
-          s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
-          s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
-          dp[i][j] = fmaf(ao[i].x, bv[j].x, dp[i][j]);
-          dp[i][j] = fmaf(ao[i].y, bv[j].y, dp[i][j]);
-          dp[i][j] = fmaf(ao[i].z, bv[j].z, dp[i][j]);
-          dp[i][j] = fmaf(ao[i].w, bv[j].w, dp[i][j]);
-        }
-    }
-
-    // P = exp(logits - lse), dS = P (dp - D); 0 past S
-    int kh[4], kw[4];
-    bool kok[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int kj = k0 + tx + 16 * j;
-      kok[j] = kj < S;
-      kh[j] = kok[j] ? kj / g : 0;
-      kw[j] = kok[j] ? kj - kh[j] * g : 0;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float bias = rhs[r * RST + kh[j]] + rws[r * RST + kw[j]];
-        const float p = (kok[j] && rok[i])
-                            ? expf(s[i][j] * scale + bias - lse_r[i])
-                            : 0.f;
-        dss[r * DST + tx + 16 * j] = p * (dp[i][j] - dd_r[i]);
-      }
-    }
-    __syncthreads();
-
-    // dq += dS . K, 4 rows x CD columns a thread
-#pragma unroll 2
-    for (int c = 0; c < kBK; c += 4) {
-      float4 da[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        da[i] = *reinterpret_cast<const float4*>(dss + (ty * 4 + i) * DST + c);
-      float kb[4][CD];
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc)
-#pragma unroll
-        for (int jj = 0; jj < CD; ++jj)
-          kb[cc][jj] = ks[(c + cc) * ST + tx * CD + jj];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float dv4[4] = {da[i].x, da[i].y, da[i].z, da[i].w};
-#pragma unroll
-        for (int cc = 0; cc < 4; ++cc)
-#pragma unroll
-          for (int jj = 0; jj < CD; ++jj)
-            acc[i][jj] = fmaf(dv4[cc], kb[cc][jj], acc[i][jj]);
-      }
-    }
-
-    // drel_h[row, kh] += the run of this tile's keys on grid row kh
-    const int kh_lo = k0 / g, kh_hi = (k0 + nk - 1) / g;
-    for (int h = kh_lo; h <= kh_hi; ++h) {
-      const int j_lo = max(h * g - k0, 0), j_hi = min((h + 1) * g - k0, nk);
-      float sum = 0.f;
-      for (int j = j_lo + part; j < j_hi; j += 4) sum += dss[dr * DST + j];
-      sum += __shfl_xor_sync(kFull, sum, 1);
-      sum += __shfl_xor_sync(kFull, sum, 2);
-      if (part == 0) ghs[dr * RST + h] += sum;
-    }
-    // drel_w[row, w] += this tile's keys j with (k0 + j) % g == w, for
-    // the thread's w = part, part + 4, ...
-    int j0 = ((part - k0) % g + g) % g;
-    for (int w = part; w < g; w += 4) {
-      float sum = 0.f;
-      for (int j = j0; j < nk; j += g) sum += dss[dr * DST + j];
-      gws[dr * RST + w] += sum;
-      j0 += 4;
-      if (j0 >= g) j0 -= g;
-    }
-  }
-  __syncthreads();  // every drel accumulator is complete
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
-    if (r >= S) continue;
-    float* o = dq + base + (size_t)r * HD + tx * CD;
-#pragma unroll
-    for (int jj = 0; jj < CD; ++jj) o[jj] = acc[i][jj] * scale;
-  }
-  for (int e = tid; e < kBQ * g; e += kThreads) {
-    const int r = e / g, c = e - r * g;
-    if (q0 + r >= S) continue;
-    const size_t off = rbase + (size_t)q0 * g + e;
-    drel_h[off] = ghs[r * RST + c];
-    drel_w[off] = gws[r * RST + c];
-  }
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const float* __restrict__ rel_h,
-              const float* __restrict__ rel_w, const float* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              float* __restrict__ dk, float* __restrict__ dv, int S, int g,
-              float scale) {
-  constexpr int ST = row_stride<HD>();
-  constexpr int PST = kBQ + 4;
-  constexpr int CD = HD / 16;  // dk / dv columns per thread
-  static_assert(HD % 16 == 0 && (CD == 2 || CD == 4), "head_dim 32 or 64");
-  const int RST = rel_stride(g);
-
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* ks = smem;                 // [BK][ST]   the block's key rows
-  float* vs = ks + kBK * ST;        // [BK][ST]   the block's value rows
-  float* qs = vs + kBK * ST;        // [BQ][ST]   query rows of a tile
-  float* dos = qs + kBQ * ST;       // [BQ][ST]   dO rows of a tile
-  float* pts = dos + kBQ * ST;      // [BK][PST]  P^T of a tile
-  float* dsts = pts + kBK * PST;    // [BK][PST]  dS^T of a tile
-  float* rhs = dsts + kBK * PST;    // [BQ][RST]  rel_h rows of a tile
-  float* rws = rhs + kBQ * RST;     // [BQ][RST]  rel_w rows of a tile
-  float* lses = rws + kBQ * RST;    // [BQ]       lse of a tile's rows
-  float* dds = lses + kBQ;          // [BQ]       D of a tile's rows
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int k0 = blockIdx.x * kBK;
-  const size_t base = (size_t)blockIdx.y * S * HD;
-  const size_t rbase = (size_t)blockIdx.y * S * g;
-  const size_t lbase = (size_t)blockIdx.y * S;
-
-  load_rows<HD>(ks, k + base, k0, S);
-  load_rows<HD>(vs, v + base, k0, S);
-
-  // the thread's keys k0 + 4ty + i: grid row and column, and < S
-  int kh[4], kw[4];
-  bool kok[4];
-  float gk[4][CD], gv[4][CD];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kj = k0 + ty * 4 + i;
-    kok[i] = kj < S;
-    kh[i] = kok[i] ? kj / g : 0;
-    kw[i] = kok[i] ? kj - kh[i] * g : 0;
-#pragma unroll
-    for (int jj = 0; jj < CD; ++jj) gk[i][jj] = gv[i][jj] = 0.f;
-  }
-
-  const int n_tiles = (S + kBQ - 1) / kBQ;
-  for (int qt = 0; qt < n_tiles; ++qt) {
-    const int q0 = qt * kBQ;
-    __syncthreads();  // the previous tile's reads are done
-    load_rows<HD>(qs, q + base, q0, S);
-    load_rows<HD>(dos, dout + base, q0, S);
-    load_rel(rhs, rws, rel_h + rbase, rel_w + rbase, q0, S, g, RST);
-    for (int e = tid; e < kBQ; e += kThreads) {
-      const bool ok = q0 + e < S;
-      lses[e] = ok ? lse[lbase + q0 + e] : 0.f;
-      dds[e] = ok ? delta[lbase + q0 + e] : 0.f;
-    }
-    __syncthreads();
-
-    // s^T = k . q and dp^T = v . dO, 4 keys x 4 queries a thread
-    float st[4][4], dpt[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < HD; d += 4) {
-      float4 a[4], av[4], b[4], bo[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = *reinterpret_cast<const float4*>(ks + (ty * 4 + i) * ST + d);
-        av[i] = *reinterpret_cast<const float4*>(vs + (ty * 4 + i) * ST + d);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        b[j] = *reinterpret_cast<const float4*>(qs + (tx + 16 * j) * ST + d);
-        bo[j] = *reinterpret_cast<const float4*>(dos + (tx + 16 * j) * ST + d);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          st[i][j] = fmaf(a[i].x, b[j].x, st[i][j]);
-          st[i][j] = fmaf(a[i].y, b[j].y, st[i][j]);
-          st[i][j] = fmaf(a[i].z, b[j].z, st[i][j]);
-          st[i][j] = fmaf(a[i].w, b[j].w, st[i][j]);
-          dpt[i][j] = fmaf(av[i].x, bo[j].x, dpt[i][j]);
-          dpt[i][j] = fmaf(av[i].y, bo[j].y, dpt[i][j]);
-          dpt[i][j] = fmaf(av[i].z, bo[j].z, dpt[i][j]);
-          dpt[i][j] = fmaf(av[i].w, bo[j].w, dpt[i][j]);
-        }
-    }
-
-    // P^T and dS^T of the tile into shared memory; 0 past S
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = tx + 16 * j;
-      const bool rok = q0 + r < S;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float bias = rhs[r * RST + kh[i]] + rws[r * RST + kw[i]];
-        const float p = (kok[i] && rok)
-                            ? expf(st[i][j] * scale + bias - lses[r])
-                            : 0.f;
-        pts[(ty * 4 + i) * PST + r] = p;
-        dsts[(ty * 4 + i) * PST + r] = p * (dpt[i][j] - dds[r]);
-      }
-    }
-    __syncthreads();
-
-    // dv += P^T . dO, dk += dS^T . Q over the tile's queries
-#pragma unroll 2
-    for (int c = 0; c < kBQ; c += 4) {
-      float4 pa[4], da[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pa[i] = *reinterpret_cast<const float4*>(pts + (ty * 4 + i) * PST + c);
-        da[i] = *reinterpret_cast<const float4*>(dsts + (ty * 4 + i) * PST + c);
-      }
-      float ob[4][CD], qb[4][CD];
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc)
-#pragma unroll
-        for (int jj = 0; jj < CD; ++jj) {
-          ob[cc][jj] = dos[(c + cc) * ST + tx * CD + jj];
-          qb[cc][jj] = qs[(c + cc) * ST + tx * CD + jj];
-        }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p4[4] = {pa[i].x, pa[i].y, pa[i].z, pa[i].w};
-        const float d4[4] = {da[i].x, da[i].y, da[i].z, da[i].w};
-#pragma unroll
-        for (int cc = 0; cc < 4; ++cc)
-#pragma unroll
-          for (int jj = 0; jj < CD; ++jj) {
-            gv[i][jj] = fmaf(p4[cc], ob[cc][jj], gv[i][jj]);
-            gk[i][jj] = fmaf(d4[cc], qb[cc][jj], gk[i][jj]);
+        const int hf = i >> 1;
+        float p;
+        if (G64) {
+          p = exp2f(fmaf(s[j][i], sl2, bw[j][i] + rh2[hf]));
+        } else {
+          const int key = k0 + 8 * j + 2 * tq + (i & 1);
+          p = 0.f;
+          if (key < S && rok[hf]) {
+            const int kh = key / g, kw = key - kh * g;
+            const size_t row = rel0 + (size_t)(ra + 8 * hf) * g;
+            const float bias =
+                __ldg(rel_h + row + kh) + __ldg(rel_w + row + kw);
+            p = exp2f(fmaf(s[j][i], sl2, fmaf(bias, kLog2e, -lse2[hf])));
           }
+        }
+        s[j][i] = p * (dp[j][i] - dd[hf]);
+      }
+
+    second_product<HD>(acc, s, ks, gq, tq);  // dQ += dS K
+
+    if (G64) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            sum += s[j][2 * hf + e];
+            gw[j][2 * hf + e] += s[j][2 * hf + e];
+          }
+        sum += __shfl_xor_sync(kFull, sum, 1);
+        sum += __shfl_xor_sync(kFull, sum, 2);
+        if (tq == 0) drel_h[rel0 + (size_t)(ra + 8 * hf) * 64 + kt] = sum;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          dss[(ra + 8 * (i >> 1)) * kDst + 8 * j + 2 * tq + (i & 1)] =
+              s[j][i];
+      __syncthreads();
+      // thread (row dr, part): drel_h[dr, kh] += the run of the tile's keys
+      // on grid row kh, split over the row's 2 threads and joined by a
+      // shuffle; drel_w[dr, w] += the tile's keys j with (k0 + j) % g == w
+      // for the thread's w = part, part + 2, ...
+      const int dr = tid >> 1, part = tid & 1;
+      const int nk = min(kR, S - k0);
+      const int kh_lo = k0 / g, kh_hi = (k0 + nk - 1) / g;
+      for (int h = kh_lo; h <= kh_hi; ++h) {
+        const int j_lo = max(h * g - k0, 0), j_hi = min((h + 1) * g - k0, nk);
+        float sum = 0.f;
+        for (int j = j_lo + part; j < j_hi; j += 2) sum += dss[dr * kDst + j];
+        sum += __shfl_xor_sync(kFull, sum, 1);
+        if (part == 0) ghs[dr * AST + h] += sum;
+      }
+      int j0 = ((part - k0) % g + g) % g;
+      for (int w = part; w < g; w += 2) {
+        float sum = 0.f;
+        for (int j = j0; j < nk; j += g) sum += dss[dr * kDst + j];
+        gws[dr * AST + w] += sum;
+        j0 += 2;
+        if (j0 >= g) j0 -= g;
       }
     }
   }
+  if (!G64) __syncthreads();  // every drel sum is in shared memory
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (!kok[i]) continue;
-    const size_t off = base + (size_t)(k0 + ty * 4 + i) * HD + tx * CD;
+  for (int hf = 0; hf < 2; ++hf) {
+    if (!rok[hf]) continue;
+    const int r = ra + 8 * hf;
+    float* o = dq + base + (size_t)(q0 + r) * HD + 2 * tq;
 #pragma unroll
-    for (int jj = 0; jj < CD; ++jj) {
-      dk[off + jj] = gk[i][jj] * scale;
-      dv[off + jj] = gv[i][jj];
+    for (int n = 0; n < NC; ++n)
+      *reinterpret_cast<float2*>(o + 8 * n) =
+          make_float2(acc[n][2 * hf] * scale, acc[n][2 * hf + 1] * scale);
+    if (G64) {
+      float* w = drel_w + rel0 + (size_t)r * 64 + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<float2*>(w + 8 * j) =
+            make_float2(gw[j][2 * hf], gw[j][2 * hf + 1]);
+    }
+  }
+  if (!G64)
+    for (int e = tid; e < kR * g; e += kThreads) {
+      const int r = e / g, c = e - r * g;
+      if (q0 + r >= S) continue;
+      drel_h[rel0 + e] = ghs[r * AST + c];
+      drel_w[rel0 + e] = gws[r * AST + c];
+    }
+}
+
+// ------------------------------------------------------------------- dkv
+
+// shared memory: K, V, then 2 stages of Q, dO and the tile rows' lse, D
+// and (g = 64) rel_h[row, kh] of the block's grid row kh
+template <int HD>
+__host__ __device__ constexpr int dkv_stage_floats() {
+  return 2 * Tile<HD>::kFloats + 3 * kR;
+}
+template <int HD>
+size_t dkv_smem_bytes() {
+  return 4 * (2 * (size_t)Tile<HD>::kFloats + 2 * dkv_stage_floats<HD>());
+}
+
+template <int HD, bool G64>
+__device__ __forceinline__ void dkv_load_stage(
+    float* st, const float* q, const float* dout, const float* rel_h,
+    const float* lse, const float* delta, int hh, int q0, int S, int kh) {
+  constexpr int T = Tile<HD>::kFloats;
+  const size_t base = (size_t)hh * S * HD, row0 = (size_t)hh * S + q0;
+  load_tile<HD>(st, q + base, q0, S);
+  load_tile<HD>(st + T, dout + base, q0, S);
+  const uint32_t rows = smem_u32(st + 2 * T);
+  for (int e = threadIdx.x; e < 3 * kR; e += kThreads) {
+    const int which = e / kR, c = e - which * kR;
+    const bool ok = q0 + c < S && (which < 2 || G64);
+    const float* src = which == 0   ? lse + row0 + c
+                       : which == 1 ? delta + row0 + c
+                                    : rel_h + (row0 + c) * 64 + kh;
+    cp4(rows + 4 * e, ok ? src : lse, ok);
+  }
+}
+
+template <int HD, bool G64>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_bwd_dkv_tf32x3(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ rel_h,
+                     const float* __restrict__ rel_w,
+                     const float* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int S, int g, float scale) {
+  constexpr int T = Tile<HD>::kFloats, NC = HD / 8;
+  constexpr int SF = dkv_stage_floats<HD>();
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const float* ks = sm;      // the block's key rows
+  const float* vs = sm + T;  // their value rows
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int ra = 16 * warp + gq;  // the thread's keys k0 + ra, k0 + ra + 8
+  // at g = 64 the block's 64 keys are grid row kh0, and kw is ra (+ 8)
+  const int k0 = blockIdx.x * kR, hh = blockIdx.y, kh0 = blockIdx.x;
+  const size_t base = (size_t)hh * S * HD;
+
+  load_tile<HD>(sm, k + base, k0, S);
+  load_tile<HD>(sm + T, v + base, k0, S);
+  dkv_load_stage<HD, G64>(sm + 2 * T, q, dout, rel_h, lse, delta, hh, 0, S,
+                          kh0);
+  cp_commit();
+
+  int kh[2], kw[2];
+  bool kok[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int key = k0 + ra + 8 * hf;
+    kok[hf] = key < S;
+    kh[hf] = kok[hf] ? key / g : 0;
+    kw[hf] = kok[hf] ? key - kh[hf] * g : 0;
+  }
+  const float sl2 = scale * kLog2e;
+  float gk[NC][4], gv[NC][4];
+#pragma unroll
+  for (int n = 0; n < NC; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) gk[n][i] = gv[n][i] = 0.f;
+
+  const int n_tiles = (S + kR - 1) / kR;
+  for (int qt = 0; qt < n_tiles; ++qt) {
+    const int st = qt & 1, q0 = qt * kR;
+    const float* qs = sm + 2 * T + st * SF;
+    const float* dos = qs + T;
+    const float* lses = qs + 2 * T;
+    const float* dds = lses + kR;
+    const float* rhs = dds + kR;
+    cp_wait_all();
+    __syncthreads();  // tile qt has landed; tile qt - 1's stage is free
+    if (qt + 1 < n_tiles) {
+      dkv_load_stage<HD, G64>(sm + 2 * T + (st ^ 1) * SF, q, dout, rel_h,
+                              lse, delta, hh, q0 + kR, S, kh0);
+      cp_commit();
+    }
+    // g = 64: rel_w[query, kw] of the thread's queries and keys, read
+    // ahead of the first products
+    float rw[8][4];
+    if (G64)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          rw[j][i] = __ldg(rel_w +
+                           ((size_t)hh * S + q0 + 8 * j + 2 * tq + (i & 1)) *
+                               64 + kw[i >> 1]);
+
+    float s[8][4], dp[8][4];
+    first_products<HD>(s, dp, ks, qs, vs, dos, ra, gq, tq);
+
+    // P^T in place of s, dS^T in place of dp; 0 past S
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + 2 * tq + e;
+        const float d = dds[c];
+        if (G64) {
+          // the block's keys share grid row kh0: rel_h joins lse
+          const float l2 = (lses[c] - rhs[c]) * kLog2e;
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int i = 2 * hf + e;
+            const float p =
+                exp2f(fmaf(s[j][i], sl2, fmaf(rw[j][i], kLog2e, -l2)));
+            s[j][i] = p;
+            dp[j][i] = p * (dp[j][i] - d);
+          }
+        } else {
+          const bool qok = q0 + c < S;
+          const float l2 = lses[c] * kLog2e;
+          const size_t row = ((size_t)hh * S + q0 + c) * g;
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int i = 2 * hf + e;
+            float p = 0.f;
+            if (qok && kok[hf]) {
+              const float bias =
+                  __ldg(rel_h + row + kh[hf]) + __ldg(rel_w + row + kw[hf]);
+              p = exp2f(fmaf(s[j][i], sl2, fmaf(bias, kLog2e, -l2)));
+            }
+            s[j][i] = p;
+            dp[j][i] = p * (dp[j][i] - d);
+          }
+        }
+      }
+
+    second_product<HD>(gv, s, dos, gq, tq);  // dV += P^T dO
+    second_product<HD>(gk, dp, qs, gq, tq);  // dK += dS^T Q
+  }
+
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    if (!kok[hf]) continue;
+    const size_t off = base + (size_t)(k0 + ra + 8 * hf) * HD + 2 * tq;
+#pragma unroll
+    for (int n = 0; n < NC; ++n) {
+      *reinterpret_cast<float2*>(dk + off + 8 * n) =
+          make_float2(gk[n][2 * hf] * scale, gk[n][2 * hf + 1] * scale);
+      *reinterpret_cast<float2*>(dv + off + 8 * n) =
+          make_float2(gv[n][2 * hf], gv[n][2 * hf + 1]);
     }
   }
 }
 
-// calls f(HD) for the head_dim: the float32 route
-template <typename F>
-int dispatch(int hd, F f) {
-  using H32 = std::integral_constant<int, 32>;
-  using H64 = std::integral_constant<int, 64>;
-  if (hd == 64) return f(H64{});
-  if (hd == 32) return f(H32{});
-  return (int)cudaErrorInvalidValue;
-}
+// -------------------------------------------------------------- launches
 
 template <typename K>
 int set_smem(K kern, size_t bytes) {
   return (int)cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <int HD, bool G64>
+int launch_dq(const void* q, const void* k, const void* v, const void* rel_h,
+              const void* rel_w, const void* dout, const void* lse,
+              const void* delta, void* dq, void* drel_h, void* drel_w,
+              int bnh, int S, int g, float scale, cudaStream_t stream) {
+  auto kern = flash_bwd_dq_tf32x3<HD, G64>;
+  const size_t smem = dq_smem_bytes<HD>(g, G64);
+  const int err = set_smem(kern, smem);
+  if (err) return err;
+  kern<<<dim3((S + kR - 1) / kR, bnh), kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(rel_h),
+      static_cast<const float*>(rel_w), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dq), static_cast<float*>(drel_h),
+      static_cast<float*>(drel_w), S, g, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int HD, bool G64>
+int launch_dkv(const void* q, const void* k, const void* v,
+               const void* rel_h, const void* rel_w, const void* dout,
+               const void* lse, const void* delta, void* dk, void* dv,
+               int bnh, int S, int g, float scale, cudaStream_t stream) {
+  auto kern = flash_bwd_dkv_tf32x3<HD, G64>;
+  const size_t smem = dkv_smem_bytes<HD>();
+  const int err = set_smem(kern, smem);
+  if (err) return err;
+  kern<<<dim3((S + kR - 1) / kR, bnh), kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(rel_h),
+      static_cast<const float*>(rel_w), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dk), static_cast<float*>(dv), S, g, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -455,11 +700,11 @@ extern "C" int cartseg_flash_relpos_bwd_dkv_tc(
     void* dk, void* dv, int bnh, int S, int g, int hd, float scale,
     void* stream);
 
-// q, k, v, dout: [bnh, S, hd]; rel_h, rel_w: [bnh, S, g]; all contiguous,
-// of one type: float32 (bf16 == 0) or bfloat16 (bf16 == 1). S == g*g.
-// lse, delta: fp32 [bnh, S] (the forward's logsumexp and rowsum(dO * O)).
-// Writes dq [bnh, S, hd] and drel_h, drel_w [bnh, S, g] in the inputs'
-// type.
+// q, k, v, dout: [bnh, S, hd]; rel_h, rel_w: [bnh, S, g]; all contiguous
+// and 16-byte aligned, of one type: float32 (bf16 == 0) or bfloat16
+// (bf16 == 1). S == g*g, hd 32 or 64. lse, delta: fp32 [bnh, S] (the
+// forward's logsumexp and rowsum(dO * O)). Writes dq [bnh, S, hd] and
+// drel_h, drel_w [bnh, S, g] in the inputs' type.
 extern "C" int cartseg_flash_relpos_bwd_dq(
     const void* q, const void* k, const void* v, const void* rel_h,
     const void* rel_w, const void* dout, const void* lse, const void* delta,
@@ -470,22 +715,16 @@ extern "C" int cartseg_flash_relpos_bwd_dq(
     return cartseg_flash_relpos_bwd_dq_tc(q, k, v, rel_h, rel_w, dout, lse,
                                           delta, dq, drel_h, drel_w, bnh, S,
                                           g, hd, scale, stream);
-  return dispatch(hd, [&](auto h) {
-    constexpr int HD = decltype(h)::value;
-    auto kern = flash_bwd_dq<HD>;
-    const size_t smem = dq_smem_bytes<HD>(g);
-    const int err = set_smem(kern, smem);
-    if (err) return err;
-    kern<<<dim3((S + kBQ - 1) / kBQ, bnh), kThreads, smem,
-           (cudaStream_t)stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(rel_h),
-        static_cast<const float*>(rel_w), static_cast<const float*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<float*>(dq), static_cast<float*>(drel_h),
-        static_cast<float*>(drel_w), S, g, scale);
-    return (int)cudaGetLastError();
-  });
+  const cudaStream_t st = (cudaStream_t)stream;
+#define CARTSEG_DQ_ARGS                                                    \
+  q, k, v, rel_h, rel_w, dout, lse, delta, dq, drel_h, drel_w, bnh, S, g, \
+      scale, st
+  if (hd == 64 && g == 64) return launch_dq<64, true>(CARTSEG_DQ_ARGS);
+  if (hd == 64) return launch_dq<64, false>(CARTSEG_DQ_ARGS);
+  if (hd == 32 && g == 64) return launch_dq<32, true>(CARTSEG_DQ_ARGS);
+  if (hd == 32) return launch_dq<32, false>(CARTSEG_DQ_ARGS);
+#undef CARTSEG_DQ_ARGS
+  return (int)cudaErrorInvalidValue;
 }
 
 // The same inputs; writes dk and dv [bnh, S, hd] in the inputs' type.
@@ -499,19 +738,13 @@ extern "C" int cartseg_flash_relpos_bwd_dkv(
     return cartseg_flash_relpos_bwd_dkv_tc(q, k, v, rel_h, rel_w, dout, lse,
                                            delta, dk, dv, bnh, S, g, hd,
                                            scale, stream);
-  return dispatch(hd, [&](auto h) {
-    constexpr int HD = decltype(h)::value;
-    auto kern = flash_bwd_dkv<HD>;
-    const size_t smem = dkv_smem_bytes<HD>(g);
-    const int err = set_smem(kern, smem);
-    if (err) return err;
-    kern<<<dim3((S + kBK - 1) / kBK, bnh), kThreads, smem,
-           (cudaStream_t)stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(rel_h),
-        static_cast<const float*>(rel_w), static_cast<const float*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<float*>(dk), static_cast<float*>(dv), S, g, scale);
-    return (int)cudaGetLastError();
-  });
+  const cudaStream_t st = (cudaStream_t)stream;
+#define CARTSEG_DKV_ARGS \
+  q, k, v, rel_h, rel_w, dout, lse, delta, dk, dv, bnh, S, g, scale, st
+  if (hd == 64 && g == 64) return launch_dkv<64, true>(CARTSEG_DKV_ARGS);
+  if (hd == 64) return launch_dkv<64, false>(CARTSEG_DKV_ARGS);
+  if (hd == 32 && g == 64) return launch_dkv<32, true>(CARTSEG_DKV_ARGS);
+  if (hd == 32) return launch_dkv<32, false>(CARTSEG_DKV_ARGS);
+#undef CARTSEG_DKV_ARGS
+  return (int)cudaErrorInvalidValue;
 }

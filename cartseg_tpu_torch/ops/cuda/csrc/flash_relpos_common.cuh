@@ -1,7 +1,6 @@
-// Shared pieces of the float32 decomposed rel-pos flash-attention kernels
-// on the CUDA cores (flash_relpos.cu, the forward; flash_relpos_bwd.cu, the
-// backward): tile sizes, the tile loads, and the padded row strides of
-// the shared-memory tiles.
+// Pieces of the float32 decomposed rel-pos flash-attention forward on the
+// CUDA cores (flash_relpos.cu): tile sizes, the tile loads, and the padded
+// row strides of the shared-memory tiles.
 
 #pragma once
 

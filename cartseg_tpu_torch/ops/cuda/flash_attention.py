@@ -23,10 +23,13 @@ csrc/flash_relpos.cu, whose C entry point keeps float32 on the CUDA cores
 csrc/flash_relpos_fwd_tc.cu (`flash_fwd_tc`: P rounded to bf16 as the
 operand of P V, as FlashAttention does); for the backward
 (`flash_bwd_dq`: dq, drel_h, drel_w; `flash_bwd_dkv`: dk, dv),
-csrc/flash_relpos_bwd.cu, whose C entry points keep float32 on the CUDA
-cores and hand bfloat16 to the tensor-core kernels of
-csrc/flash_relpos_bwd_tc.cu (P and dS rounded to bf16 as the operands of
-the second products). D stays one
+csrc/flash_relpos_bwd.cu, whose C entry points run float32 on the tensor
+cores as split-TF32 products (`flash_bwd_dq_tf32x3`,
+`flash_bwd_dkv_tf32x3`: each fp32 operand cut into two TF32 halves, hi lo
++ lo hi + hi hi summed in fp32, P, dS and every sum fp32; within 1e-5 of
+the plain version, tests/test_torch_flash_bwd_tf32x3.py) and hand bfloat16
+to the tensor-core kernels of csrc/flash_relpos_bwd_tc.cu (P and dS
+rounded to bf16 as the operands of the second products). D stays one
 PyTorch expression, as JAX leaves it to XLA. A wrapper given CPU tensors
 runs the plain version, which materialises the (bnh, S, S) logits; given
 CUDA tensors it launches its kernel or raises. Nothing falls back.
@@ -40,7 +43,7 @@ from cartseg_tpu_torch.ops.cuda import build as B
 
 HEAD_DIMS = (32, 64)
 # the largest grid the kernels take: flash_bwd_dq's shared-memory tiles
-# (four [64, g] bias rows and sums) fit the SM up to here on both
+# ([64, g] drel sums beside the row tiles) fit the SM up to here on both
 # routes; SAM's 1024^2 input is g = 64, and 2048^2 is 128
 MAX_GRID = 128
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -200,7 +203,7 @@ def flash_relpos_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_bwd_dq(q, k, v, rel_h, rel_w, do, lse, delta, scale: float,
                  grid_size: int):
-    """(dq, drel_h, drel_w). CUDA: `flash_bwd_dq` in
+    """(dq, drel_h, drel_w). CUDA: `flash_bwd_dq_tf32x3` in
     csrc/flash_relpos_bwd.cu (float32), `flash_bwd_dq_tc` in
     csrc/flash_relpos_bwd_tc.cu (bfloat16); CPU: `flash_bwd_dq_plain`."""
     args = (q, k, v, rel_h, rel_w, do, lse, delta)
@@ -223,7 +226,7 @@ def flash_bwd_dq(q, k, v, rel_h, rel_w, do, lse, delta, scale: float,
 
 def flash_bwd_dkv(q, k, v, rel_h, rel_w, do, lse, delta, scale: float,
                   grid_size: int):
-    """(dk, dv). CUDA: `flash_bwd_dkv` in csrc/flash_relpos_bwd.cu
+    """(dk, dv). CUDA: `flash_bwd_dkv_tf32x3` in csrc/flash_relpos_bwd.cu
     (float32), `flash_bwd_dkv_tc` in csrc/flash_relpos_bwd_tc.cu
     (bfloat16); CPU: `flash_bwd_dkv_plain`."""
     args = (q, k, v, rel_h, rel_w, do, lse, delta)

@@ -6,7 +6,8 @@
 Phases, in order; any failure raises and the exit code is non-zero:
   1. the card's name and power limit (nvidia-smi); require_cuda();
   2. build the CUDA kernels from ops/cuda/csrc (nvcc), print the time
-     and each kernel's registers and spills (-Xptxas -v);
+     and each kernel's registers and spills (-Xptxas -v), and for the
+     fp32 backward kernels their dynamic shared memory and blocks an SM;
   3. each kernel against its plain PyTorch version on the card, on the
      same inputs: CC at 8- and 4-connectivity on [64,512,512] masks
      (blobs, uniform noise p=0.45, all-background, all-foreground, a
@@ -27,8 +28,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
      forward's lse (fp32 1e-5 of max |plain|, bf16 1e-5 absolute; out
      bit-equal to the inference call's) and the two backward kernels'
      five gradients at
-     the same shapes (1e-5 of max |plain| in fp32 on the CUDA cores,
-     1e-2 in bf16 on the tensor cores); channel_sums at resnet34-UNet's BN
+     the same shapes (1e-5 of max |plain| in fp32, as split-TF32 products
+     on the tensor cores, 1e-2 in bf16 on the tensor cores; the same bits
+     twice); channel_sums at resnet34-UNet's BN
      inputs at 512^2 bs6 (the stem [6,64,256,256], a layer3 BN
      [6,256,32,32], the decoder's 16-channel top [6,16,512,512]),
      channels_last and contiguous, fp32 and bf16, (x, x) and (dy, x),
@@ -77,8 +79,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
         parameter and none on the prompt encoder or decoder; then the
         flash lane against the plain lane (global_attn_flash=False) on the
         same weights: fp32 with TF32 off, per-parameter gradient relative
-        L2 <= 1e-4 and loss <= 1e-5 relative; bf16, loss <= 1e-3 relative
-        and sum |grad| within 5 %;
+        L2 <= 1e-4 and loss <= 1e-5 relative, the fp32 flash lane's step
+        launching flash_fwd, flash_bwd_dq and flash_bwd_dkv 4 times each;
+        bf16, loss <= 1e-3 relative and sum |grad| within 5 %;
      e. BCE+Dice training (workloads/train_bce_dice.main) on 4b's tree at
         the workload's CONFIG (resnet34-UNet, bs6, 512^2, bf16 autocast,
         train_512, BCE+Dice w 0.5, session_sorted, basic CSV) for
@@ -115,10 +118,16 @@ Phases, in order; any failure raises and the exit code is non-zero:
      step for both lanes with the global blocks' share and the device's
      busy share, its device time by kernel (which must name the bf16
      tensor-core kernels flash_fwd_tc, flash_bwd_dq_tc and
-     flash_bwd_dkv_tc) and, at the step's inputs, the bf16 training
-     forward against its plain version and SDPA and each bf16 backward
-     gradient's distance to a float64 reference for the kernels, the
-     plain version and SDPA autograd; the EDT at the ABL step's GT
+     flash_bwd_dkv_tc), the same step in fp32 (TF32 off) for both lanes
+     in alternating pairs with its busy share and device time by kernel
+     (which must name the split-TF32 kernels flash_bwd_dq_tf32x3 and
+     flash_bwd_dkv_tf32x3) and, at the step's inputs, the bf16 training
+     forward against its plain version and SDPA, the backward kernels in
+     bf16 and fp32 against their plain versions, SDPA autograd and their
+     bounds (fp32: split TF32 at the TF32 peak, the CUDA-core bound
+     beside), and each backward gradient's distance to a float64
+     reference for the kernels, the plain version and SDPA autograd, in
+     bf16 and fp32; the EDT at the ABL step's GT
      boundaries and the boundary step's masks, with its bytes and
      operations bounds and the CUDA kernels one call runs (which must be
      at most 3); the BCE+Dice step
@@ -133,9 +142,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
      path shapes in device time (profiler, the L2 flushed before each
      call) against their plain versions,
      F.mish / F.silu / F.hardswish and ATen's mish/silu/hardswish
-     backward, and their bounds, then each activation forward against
-     its PyTorch call in ACT_PAIRS alternating cold-L2 pairs (medians
-     and spread); the boundary workload's train step
+     backward, and their bounds, then each activation forward and
+     backward against its PyTorch call in ACT_PAIRS alternating cold-L2
+     pairs (medians and spread); the boundary workload's train step
      against the same step with BCE+Dice alone, its busy share and its
      4 edt launches.
 The line before the last holds the kernels' JSON record, the one before
@@ -183,6 +192,12 @@ KERNELS = {
     "flash_bwd_dkv": (
         "cartseg_tpu_torch/ops/cuda/csrc/flash_relpos_bwd_tc.cu",
         "cartseg_tpu/ops/pallas/flash_attention.py:232"),
+    # the fp32 route of the same two launches: split-TF32 kernels
+    "flash_bwd_dq_f32": ("cartseg_tpu_torch/ops/cuda/csrc/flash_relpos_bwd.cu",
+                         "cartseg_tpu/ops/pallas/flash_attention.py:179"),
+    "flash_bwd_dkv_f32": (
+        "cartseg_tpu_torch/ops/cuda/csrc/flash_relpos_bwd.cu",
+        "cartseg_tpu/ops/pallas/flash_attention.py:232"),
     "channel_sums": ("cartseg_tpu_torch/ops/cuda/csrc/channel_sums.cu",
                      "cartseg_tpu/ops/pallas/channel_sums.py:39"),
     "focal": ("cartseg_tpu_torch/ops/cuda/csrc/focal.cu",
@@ -202,9 +217,17 @@ TRAIN_KERNELS = ("edt", "lsr_fwd", "lsr_bwd")
 SAM_KERNELS = ("flash_fwd",)
 SAM_TRAIN_KERNELS = ("flash_fwd_tc", "flash_bwd_dq", "flash_bwd_dkv")
 BWD_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
+# the fp32 fine-tune step's kernels (phase 4d's fp32 flash lane)
+F32_STEP_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # the bf16 forward's and backward's tensor-core kernels, as the profiler
 # names them
 TC_SYMBOLS = ("flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc")
+# the fp32 backward's split-TF32 tensor-core kernels, as the profiler
+# names them (csrc/flash_relpos_bwd.cu)
+F32_SYMBOLS = ("flash_bwd_dq_tf32x3", "flash_bwd_dkv_tf32x3")
+# TF32 products a fp32 product takes on the fp32 backward's route:
+# hi lo + lo hi + hi hi
+TF32_TERMS = 3
 SAM_TRAIN_STEPS = 3
 # resnet34-UNet: 36 BatchNorms in the encoder, 10 in the decoder; the
 # kernel lane calls channel_sums once forward and once backward in each
@@ -228,9 +251,14 @@ LSR_TOL = {"lsr_fwd": 1e-5, "lsr_bwd": 2e-6}
 # recomputes P from it).
 FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 FLASH_LSE_TOL = 1e-5
-# backward kernels vs plain, the same measure. In fp32 both sides keep
-# every value in fp32. In bf16 the tensor-core kernels round P and dS to
-# bf16 once each, as the A operands of dS K, P^T dO and dS^T Q (as
+# backward kernels vs plain, the same measure. In fp32 the kernels run
+# each product as three TF32 products on the tensor cores (hi lo + lo hi +
+# hi hi, hi + lo holding an operand to ~2^-22) and keep P, dS and every sum
+# fp32; an emulation on the CPU (tests/test_torch_flash_bwd_tf32x3.py)
+# lands within 1.9e-6 of max |plain| at [2,256,64], [1,529,32] and
+# [2,4096,64], and the card, whose tensor cores truncate their fp32 sums,
+# within 5.2e-6 at [12,4096,64]. In bf16 the tensor-core kernels round P
+# and dS to bf16 once each, as the A operands of dS K, P^T dO and dS^T Q (as
 # FlashAttention-2/3 and SDPA's bf16 backward do), and round each output
 # once; the plain version rounds only the outputs. One bf16 rounding is up
 # to 2^-9 of a value, and an emulation of these rounding points on the
@@ -293,9 +321,9 @@ ZOO_FLOPS = {"focal": 40, "soft_dice": 8, "one_hot": 0, "mish_fwd": 6,
 # another order
 ZOO_REF_TOL = (1e-4, 1e-5)
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s; dense FLOP/s
-# of fp32 outside the tensor cores and of bf16 on them
+# of fp32 outside the tensor cores and of bf16 and TF32 on them
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12, "tf32": 495e12}
 
 
 def log(msg: str) -> None:
@@ -345,20 +373,63 @@ def flash_bound(q: torch.Tensor, rel_h: torch.Tensor) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def bwd_flops(q: torch.Tensor, kernel: str) -> float:
+    """The products' FLOPs of a backward kernel: 2*bnh*S^2*hd each, 3 for
+    dq (q k^T, dO v^T, dS K), 4 for dkv (q k^T, dO v^T, P^T dO, dS^T Q)."""
+    bnh, S, hd = q.shape
+    return (3 if kernel == "flash_bwd_dq" else 4) * 2.0 * bnh * S * S * hd
+
+
 def bwd_bound(q: torch.Tensor, rel_h: torch.Tensor, kernel: str) -> tuple:
-    """The larger of the products' FLOPs (2*bnh*S^2*hd each: 3 for dq,
-    q k^T, dO v^T, dS K; 4 for dkv, q k^T, dO v^T, P^T dO, dS^T Q) at the
-    peak for q's type and the kernel's bytes at the HBM rate: q, k, v, dO,
-    rel_h, rel_w and the fp32 lse and D read once; dq, drel_h, drel_w or
-    dk, dv written once."""
+    """The larger of the products' FLOPs on the route's units and the
+    kernel's bytes at the HBM rate: q, k, v, dO, rel_h, rel_w and the fp32
+    lse and D read once; dq, drel_h, drel_w or dk, dv written once. bf16
+    runs its products on the tensor cores at the bf16 peak; fp32 runs each
+    as TF32_TERMS TF32 products at the TF32 peak (the split-TF32 route;
+    `bwd_cuda_core_ms` gives its fp32 CUDA-core time, printed beside)."""
     bnh, S, hd = q.shape
     dq = kernel == "flash_bwd_dq"
-    t_ops = ((3 if dq else 4) * 2.0 * bnh * S * S * hd
-             / PEAK_FLOPS[q.dtype] * 1e3)
+    t_ops = (bwd_flops(q, kernel) / PEAK_FLOPS[q.dtype] * 1e3
+             if q.dtype == torch.bfloat16 else
+             TF32_TERMS * bwd_flops(q, kernel) / PEAK_FLOPS["tf32"] * 1e3)
     qb, rb = nbytes(q), nbytes(rel_h)
     written = qb + 2 * rb if dq else 2 * qb
     t_bytes, _ = bytes_bound(4 * qb + 2 * rb + 2 * bnh * S * 4 + written)
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def bwd_cuda_core_ms(q: torch.Tensor, kernel: str) -> float:
+    """A backward kernel's fp32 products at the CUDA cores' fp32 peak, one
+    FMA a multiply-add: the bound of the route before split TF32."""
+    return bwd_flops(q, kernel) / PEAK_FLOPS[torch.float32] * 1e3
+
+
+# an H100 SM: shared memory for resident blocks (1 KB of it reserved a
+# block), 32-bit registers, threads a block of the fp32 backward
+SM_SMEM_BYTES, SMEM_RESERVED, SM_REGS, F32_BWD_THREADS = 233472, 1024, \
+    65536, 128
+
+
+def f32_bwd_smem(kernel: str, hd: int, g: int) -> int:
+    """Dynamic shared memory of the fp32 backward kernels, as
+    csrc/flash_relpos_bwd.cu's dq_smem_bytes / dkv_smem_bytes size it:
+    [64][hd + 8] fp32 tiles (dq: Q, dO, 2 stages of K and V, and for
+    g != 64 the [64, g] drel sums and the staged [64][68] dS; dkv: K, V
+    and 2 stages of Q, dO and three rows of 64)."""
+    tile = 64 * (hd + 8)
+    if "dkv" in kernel:
+        return 4 * (2 * tile + 2 * (2 * tile + 3 * 64))
+    floats = 6 * tile
+    if g != 64:
+        floats += 2 * 64 * (g + (12 - g % 8) % 8) + 64 * 68
+    return 4 * floats
+
+
+def blocks_an_sm(regs: int, smem: int) -> int:
+    """Blocks of F32_BWD_THREADS threads an SM holds by registers
+    (allocated 8 a thread at a time) and by shared memory."""
+    per_block = -(-regs // 8) * 8 * F32_BWD_THREADS
+    return min(SM_REGS // per_block, SM_SMEM_BYTES // (smem + SMEM_RESERVED))
 
 
 def sums_bound(a: torch.Tensor, b: torch.Tensor, same: bool) -> tuple:
@@ -1448,7 +1519,13 @@ def phase_compare_flash_bwd(dev) -> dict:
         delta = row_delta(out, do)
         dq, drh, drw = flash_bwd_dq(*ts, do, lse, delta, scale, g)
         dk, dv = flash_bwd_dkv(*ts, do, lse, delta, scale, g)
+        again = (*flash_bwd_dq(*ts, do, lse, delta, scale, g),
+                 *flash_bwd_dkv(*ts, do, lse, delta, scale, g))
         torch.cuda.synchronize()
+        if not all(torch.equal(a, b)
+                   for a, b in zip((dq, drh, drw, dk, dv), again)):
+            raise AssertionError(f"flash backward [{bnh},{g * g},{hd}] {dt}: "
+                                 f"a second run gave other bits")
         want = flash_relpos_bwd_plain(*ts, out, lse, do, scale, g)
         names = ("dq", "dk", "dv", "drel_h", "drel_w")
         per = {}
@@ -1466,7 +1543,8 @@ def phase_compare_flash_bwd(dev) -> dict:
                 f"{FLASH_BWD_TOL[dt]})")
         log(f"  training forward [{bnh},{g * g},{hd}] {dt}: lse abs err "
             f"{labs:.3e}, rel {lrel:.3e} (tolerance {ltol}), out == the "
-            f"inference call's, bit for bit")
+            f"inference call's, bit for bit; the backward's five gradients "
+            f"the same bits twice")
         errs[(bnh, g, hd, dt)] = {
             "flash_bwd_dq": max(per["dq"], per["drel_h"], per["drel_w"]),
             "flash_bwd_dkv": max(per["dk"], per["dv"])}
@@ -1776,15 +1854,28 @@ def phase_sam_train(tmp: Path, dev) -> dict:
         f"parameters have finite non-zero gradients, the prompt encoder "
         f"and decoder none")
 
-    # the same weights through the plain lane (global_attn_flash=False)
+    # the same weights through the plain lane (global_attn_flash=False);
+    # the fp32 flash lane's step counts its launches: the split-TF32
+    # backward kernels and the fp32 forward, 4 each
     lanes = {}
     for dt in (torch.float32, torch.bfloat16):
         for flash in (True, False):
             m = model if (flash and dt == torch.bfloat16) else \
                 sam_train_model(ckpt, flash, dt, dev)
+            build.reset_launch_counts()
             loss = float(sam_step(m, x))
+            torch.cuda.synchronize()
+            if flash and dt == torch.float32:
+                f32_launches = dict(build.LAUNCHES)
             lanes[(dt, flash)] = (loss, {k: g.float().clone() for k, g in
                                          encoder_grads(m).items()})
+    want = {k: SAM_GLOBAL_BLOCKS for k in F32_STEP_KERNELS}
+    got = {k: f32_launches[k] for k in F32_STEP_KERNELS}
+    if got != want:
+        raise AssertionError(f"fp32 flash-lane step launches {got}, want "
+                             f"{want}")
+    log(f"  fp32 flash-lane step: launches {got} (fp32 forward, split-TF32 "
+        f"backward kernels)")
     (lf, gf), (lp, gp) = lanes[(torch.float32, True)], lanes[
         (torch.float32, False)]
     rel = {k: float((gf[k] - gp[k]).norm() / gp[k].norm()) for k in gp}
@@ -1808,7 +1899,8 @@ def phase_sam_train(tmp: Path, dev) -> dict:
     log(f"  bf16 flash lane vs plain lane: loss {bf:.7f} vs {bp:.7f} (rel "
         f"{brel:.2e}, limit 1e-3); sum |grad| {sf:.6f} vs {sp:.6f} "
         f"({abs(sf - sp) / sp:.4f} apart, limit 0.05)")
-    return {"launches": launches, "model": model, "x": x, "ckpt": ckpt}
+    return {"launches": launches, "f32_launches": f32_launches,
+            "model": model, "x": x, "ckpt": ckpt}
 
 
 def device_op_ms(fn) -> dict:
@@ -1951,12 +2043,15 @@ def phase_sam_timing(pred, frames, dev, card: str) -> dict:
 
 
 def phase_sam_train_timing(train: dict, dev, card: str) -> dict:
-    """The fine-tune step for the flash and the plain lane (bf16), the
+    """The fine-tune step for the flash and the plain lane in bf16, the
     global blocks' share of it, the device's busy share, its profile
-    (which must name the three tensor-core kernels), the bf16 training
-    forward (flash_fwd_tc) and flash_bwd_dq / flash_bwd_dkv against their
-    plain versions and the library calls at the inputs the step gives
-    them, the backward in bf16 and fp32."""
+    (which must name the three tensor-core kernels); the same step in
+    fp32 for both lanes, its busy share and its profile (which must name
+    the split-TF32 backward kernels); the bf16 training forward
+    (flash_fwd_tc) and flash_bwd_dq / flash_bwd_dkv against their plain
+    versions and the library calls at the inputs the step gives them, the
+    backward in bf16 and fp32, each with its distance to a float64
+    gradient."""
     import torch.nn.functional as F
 
     from cartseg_tpu_torch.ops import flash_attention as fa
@@ -1989,6 +2084,38 @@ def phase_sam_train_timing(train: dict, dev, card: str) -> dict:
     log("  the bf16 tensor-core kernels in the step's profile: "
         + "; ".join(f"{n[:60]} {ms:.3f} ms" for found in tc.values()
                     for ms, n in found))
+
+    # the fp32 step (the model's default compute type, TF32 off): flash
+    # lane against plain lane in alternating pairs, the busy share, and a
+    # profile that must name the split-TF32 backward kernels
+    f32 = {flash: sam_train_model(train["ckpt"], flash, torch.float32, dev)
+           for flash in (True, False)}
+    for m in f32.values():
+        cuda_ms(lambda: sam_step(m, x), 2)        # warm-up
+    g1 = cuda_ms(lambda: sam_step(f32[True], x), 3)
+    q1 = cuda_ms(lambda: sam_step(f32[False], x), 3)
+    q2 = cuda_ms(lambda: sam_step(f32[False], x), 3)
+    g2 = cuda_ms(lambda: sam_step(f32[True], x), 3)
+    busy32 = _busy_share(lambda: sam_step(f32[True], x), 3)
+    ops32 = device_op_ms(lambda: sam_step(f32[True], x))
+    rows32, total32 = top_device_ops(None, ms=ops32)
+    log(f"  fp32 fine-tune step device time by kernel (profiler, one step, "
+        f"{total32:.3f} ms of kernels and copies): " + "; ".join(
+            f"{name[:70]} {ms:.3f}" for name, ms in rows32))
+    found = {sym: sorted((ms, n) for n, ms in ops32.items() if sym in n)
+             for sym in F32_SYMBOLS}
+    if not all(found.values()):
+        raise AssertionError(f"the fp32 step's profile names no "
+                             f"{[k for k, v in found.items() if not v]} "
+                             f"kernel")
+    log("  the fp32 split-TF32 kernels in the step's profile: "
+        + "; ".join(f"{n[:60]} {ms:.3f} ms" for hits in found.values()
+                    for ms, n in hits))
+    f32_ms, f32_plain_ms = (g1 + g2) / 2, (q1 + q2) / 2
+    log(f"  fine-tune step ViT-B 1024^2 fp32 (TF32 off) batch 1: flash lane "
+        f"{g1:.3f}/{g2:.3f} ms, plain lane {q1:.3f}/{q2:.3f} ms; device "
+        f"busy share {busy32:.4f} (flash lane) [{card}]")
+    del f32
 
     # the global blocks' inputs, and the flash call's arguments and output
     # gradient in the first of them
@@ -2082,16 +2209,16 @@ def phase_sam_train_timing(train: dict, dev, card: str) -> dict:
                 f"{pb:.4f} ms, F.scaled_dot_product_attention with the bias "
                 f"built beforehand {la:.4f} ms; bound {b:.5f} ms ({by}), "
                 f"kernel at {b / fwd_row[0]:.3f} of it [{card}]")
-            (dq, drh, drw), (dk, dv) = (flash_bwd_dq(*args),
-                                        flash_bwd_dkv(*args))
-            dist = bwd_f64_distances(ts, do, scale, g, {
-                "kernels": (dq, dk, dv, drh, drw), "plain": ref,
-                "SDPA autograd": lib()}, heads=4)
-            log(f"  bf16 backward at the step's inputs, heads 0-3: max abs "
-                f"distance to the float64 gradient over its max |value| "
-                f"(dq, dk, dv, drel_h, drel_w): " + "; ".join(
-                    f"{lane} " + ", ".join(f"{e:.2e}" for e in errs)
-                    for lane, errs in dist.items()))
+        (dq, drh, drw), (dk, dv) = (flash_bwd_dq(*args),
+                                    flash_bwd_dkv(*args))
+        dist = bwd_f64_distances(ts, do, scale, g, {
+            "kernels": (dq, dk, dv, drh, drw), "plain": ref,
+            "SDPA autograd": lib()}, heads=4)
+        log(f"  {dt} backward at the step's inputs, heads 0-3: max abs "
+            f"distance to the float64 gradient over its max |value| "
+            f"(dq, dk, dv, drel_h, drel_w): " + "; ".join(
+                f"{lane} " + ", ".join(f"{e:.2e}" for e in errs)
+                for lane, errs in dist.items()))
         cases = {"flash_bwd_dq": (lambda: flash_bwd_dq(*args),
                                   lambda: flash_bwd_dq_plain(*args)),
                  "flash_bwd_dkv": (lambda: flash_bwd_dkv(*args),
@@ -2105,10 +2232,14 @@ def phase_sam_train_timing(train: dict, dev, card: str) -> dict:
             pb = cuda_ms(pln, 3)
             b, by = bwd_bound(ts[0], ts[3], name)
             res[name] = ((ka + kb) / 2, (pa + pb) / 2, l1, b, by)
+            core = ("" if dt == torch.bfloat16 else
+                    f" (split TF32, {TF32_TERMS} TF32 products a product; "
+                    f"fp32 on the CUDA cores "
+                    f"{bwd_cuda_core_ms(ts[0], name):.5f} ms)")
             log(f"  {name} [{bnh},{S},{hd}] {dt} (the step's inputs): kernel "
                 f"{ka:.4f}/{kb:.4f} ms, plain {pa:.4f}/{pb:.4f} ms; bound "
-                f"{b:.5f} ms ({by}), kernel at {b / ((ka + kb) / 2):.3f} of "
-                f"it [{card}]")
+                f"{b:.5f} ms ({by}){core}, kernel at "
+                f"{b / ((ka + kb) / 2):.3f} of it [{card}]")
         log(f"  library for both: autograd of F.scaled_dot_product_attention"
             f" with the (bnh,S,S) bias materialised and requiring grad, plus "
             f"the two sums of dbias into drel_h and drel_w: {l1:.4f} ms "
@@ -2118,7 +2249,8 @@ def phase_sam_train_timing(train: dict, dev, card: str) -> dict:
         out[dt] = res
     build.reset_launch_counts()
     return {"step_ms": step_ms, "plain_ms": plain_ms, "kernels": out,
-            "fwd": fwd_row}
+            "fwd": fwd_row, "f32_step_ms": f32_ms,
+            "f32_plain_ms": f32_plain_ms, "f32_busy": busy32}
 
 
 # ------------------------------------------------------------ the loss zoo
@@ -2539,31 +2671,37 @@ def phase_zoo_timing(dev, card: str) -> dict:
                 f"backward under autograd, device time (L2 flushed) "
                 f"{device_ms(lib_both, 10, cold=True):.5f} ms [{card}]")
             del x, g, xr
-    # each forward against its PyTorch call in ACT_PAIRS alternating pairs
-    # (kernel first in the even pairs, the library in the odd), L2 flushed
-    # before each call: medians, and the spread of each series as
-    # (max - min) / median
-    x, _ = act_inputs(ACT_SHAPES[0], dev, SEED)
+    # each forward and backward against its PyTorch call in ACT_PAIRS
+    # alternating pairs (kernel first in the even pairs, the library in the
+    # odd), L2 flushed before each call: medians, and the spread of each
+    # series as (max - min) / median
+    x, gr = act_inputs(ACT_SHAPES[0], dev, SEED)
     for kind in ACT_KINDS:
-        fwd_lib = libs[kind][0]
-        series = {"kernel": [], "library": []}
-        for i in range(ACT_PAIRS):
-            order = ("kernel", "library") if i % 2 == 0 else ("library",
-                                                              "kernel")
-            for who in order:
-                series[who].append(
-                    device_ms(lambda: act_fwd(x, kind), 10, "act_fwd",
-                              cold=True) if who == "kernel" else
-                    device_ms(lambda: fwd_lib(x), 10, cold=True))
-        med = {w: float(np.median(v)) for w, v in series.items()}
-        spread = max((max(v) - min(v)) / med[w] for w, v in series.items())
-        gap = (med["kernel"] - med["library"]) / med["library"]
-        log(f"  {kind}_fwd {list(ACT_SHAPES[0])} vs F.{libs[kind][2]}, "
-            f"{ACT_PAIRS} alternating cold-L2 pairs: median kernel "
-            f"{med['kernel']:.5f} ms, library {med['library']:.5f} ms, the "
-            f"kernel {gap:+.4f} relative; spread {spread:.4f}; loses by more "
-            f"than the spread: {gap > spread} [{card}]")
-    del x
+        fwd_lib, bwd_lib, aten = libs[kind]
+        for d, kern, lib, lib_name in (
+                ("fwd", lambda: act_fwd(x, kind), lambda: fwd_lib(x),
+                 f"F.{aten}"),
+                ("bwd", lambda: act_bwd(x, gr, kind),
+                 lambda: bwd_lib(gr, x), f"aten.{aten}_backward")):
+            series = {"kernel": [], "library": []}
+            for i in range(ACT_PAIRS):
+                order = ("kernel", "library") if i % 2 == 0 else (
+                    "library", "kernel")
+                for who in order:
+                    series[who].append(
+                        device_ms(kern, 10, f"act_{d}", cold=True)
+                        if who == "kernel" else
+                        device_ms(lib, 10, cold=True))
+            med = {w: float(np.median(v)) for w, v in series.items()}
+            spread = max((max(v) - min(v)) / med[w]
+                         for w, v in series.items())
+            gap = (med["kernel"] - med["library"]) / med["library"]
+            log(f"  {kind}_{d} {list(ACT_SHAPES[0])} vs {lib_name}, "
+                f"{ACT_PAIRS} alternating cold-L2 pairs: median kernel "
+                f"{med['kernel']:.5f} ms, library {med['library']:.5f} ms, "
+                f"the kernel {gap:+.4f} relative; spread {spread:.4f}; "
+                f"loses by more than the spread: {gap > spread} [{card}]")
+    del x, gr
     build.reset_launch_counts()
     return rows
 
@@ -2658,8 +2796,25 @@ def main() -> int:
     build.load_library()
     log(f"  kernels built and loaded in {time.perf_counter() - t0:.2f} s "
         f"({build.library_path().name})")
-    for name, used, spill in ptxas_report(build.BUILD_LOG["text"]):
+    from cartseg_tpu_torch.ops.cuda.flash_attention import MAX_GRID
+
+    report = ptxas_report(build.BUILD_LOG["text"])
+    for name, used, spill in report:
         log(f"  ptxas: {name[:90]}: {used}; {spill or 'no spill report'}")
+    for name, used, _ in report:
+        if any(sym in name for sym in F32_SYMBOLS):
+            # template arguments <HD, G64>, demangled or not
+            targs = (name.split("<", 1)[1] if "<" in name
+                     else name.split("ILi", 1)[-1])
+            hd = 64 if targs.startswith("64") else 32
+            g64 = "true" in targs or "Lb1E" in targs
+            regs = int(used.split("Used ")[1].split()[0])
+            # the general-g kernels at the largest grid the wrappers take
+            g = 64 if g64 else MAX_GRID
+            smem = f32_bwd_smem(name, hd, g)
+            log(f"  {name}: {regs} registers, {smem} bytes of dynamic "
+                f"shared memory at g = {g}: {blocks_an_sm(regs, smem)} "
+                f"blocks an SM")
 
     from cartseg_tpu_torch.utils.synthetic import make_png_tree
 
@@ -2678,6 +2833,8 @@ def main() -> int:
         errs["flash_fwd_tc"] = fwd_errs[FLASH_CASES[1]]
         bwd_errs = phase_compare_flash_bwd(dev)
         errs.update(bwd_errs[FLASH_CASES[1]])
+        errs.update({f"{k}_f32": e
+                     for k, e in bwd_errs[FLASH_CASES[0]].items()})
         errs["channel_sums"] = phase_compare_channel_sums(dev)
         errs.update(phase_compare_zoo(dev))
 
@@ -2737,6 +2894,12 @@ def main() -> int:
         launches[k] = sam_train["launches"][k]
         ms, plain, lib, b, by = sam_train_timing["kernels"][torch.bfloat16][k]
         times[k], bounds[k], library[k] = (ms, plain), (b, by), lib
+        # the fp32 route: phase 4d's fp32 flash-lane step, and the kernels
+        # at its inputs in fp32
+        f = f"{k}_f32"
+        launches[f] = sam_train["f32_launches"][k]
+        ms, plain, lib, b, by = sam_train_timing["kernels"][torch.float32][k]
+        times[f], bounds[f], library[f] = (ms, plain), (b, by), lib
     # channel_sums: the kernel-lane workload run's count; device times
     # (profiler) at the decoder top's backward sums, the path's largest
     # launch, whose wall time the host's enqueueing sets

@@ -23,8 +23,12 @@ rounding.py, lands within 7.7e-3 of max |plain|), and the bf16 training
 forward's lse within 1e-5 absolute of the plain logsumexp (the backward
 recomputes P from it). The two backward kernels against
 `flash_relpos_bwd_plain`, each gradient's max abs error over the plain
-one's max |value|: 1e-5 in float32 (as the forward; both sides keep every
-value in fp32), 1e-2 in bfloat16. The bf16 route runs on the tensor
+one's max |value|: 1e-5 in float32 (as the forward; the fp32 route runs
+each product as three TF32 products on the tensor cores, hi lo + lo hi +
+hi hi, and keeps P, dS and every sum in fp32; a CPU emulation of that
+arithmetic, tests/test_torch_flash_bwd_tf32x3.py, lands within 1.9e-6 of
+max |plain|, the card within 5.2e-6 at [12,4096,64]), 1e-2 in bfloat16.
+The bf16 route runs on the tensor
 cores and rounds P and dS to bf16 once each, as the A operands of dS K,
 P^T dO and dS^T Q, then each output once; the plain version rounds only
 the outputs. One bf16 rounding is up to 2^-9 of a value; a CPU emulation
@@ -418,6 +422,24 @@ def test_flash_bwd_bf16_at_the_largest_grid(cuda_device):
         rel = float((a.float() - b.float()).abs().max()
                     / b.float().abs().max())
         assert rel <= 1e-2, (name, rel)
+
+
+def test_flash_bwd_fp32_at_the_largest_grid(cuda_device):
+    """An fp32 backward at g = MAX_GRID (S = 16384), head_dim 64: the
+    split-TF32 kernels' general-g shared memory (dq: Q, dO, two stages of K
+    and V, the fp32 drel sums and the staged dS, 191 KB) fits, and the five
+    gradients are within 1e-5 of the plain version's max |value| and the
+    same bits on a second run."""
+    g = MAX_GRID
+    ts, (out, lse, do), got, want = _flash_grads(1, g, 64, torch.float32,
+                                                 cuda_device)
+    for name, a, b, like in zip(("dq", "dk", "dv", "drel_h", "drel_w"), got,
+                                want, ts):
+        assert a.dtype == torch.float32 and a.shape == like.shape, name
+        rel = float((a - b).abs().max() / b.abs().max())
+        assert rel <= 1e-5, (name, rel)
+    again = flash_relpos_bwd(*ts, out, lse, do, 64 ** -0.5, g)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
