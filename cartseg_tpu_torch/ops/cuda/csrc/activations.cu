@@ -22,12 +22,18 @@
 // stores when the wrapper says the arrays are 16-byte aligned, else one
 // element at a time; int64 offsets. Each (activation, direction) is its
 // own __global__ instance of one template. IEEE expf / log1pf / tanhf
-// and division (no --use_fast_math). hswish is written in the plain
-// version's operation order, and its results are bit-equal to it: its
-// division by 6 is a multiplication by float32(1/6), which is how XLA
-// compiles the Pallas kernel's `/ 6.0` and how PyTorch's CUDA division
-// by a Python number runs. mish and swish differ from the plain version
-// by a few ulps where nvcc contracts a*b+c into an FMA.
+// and division (no --use_fast_math), but for mish's forward: there
+// x tanh(log1p(exp(x))) compiles to about twice the SASS instructions of
+// the one expf and __fdividef of the form below (376 against 184 for the
+// kernel), enough to keep it ~2 % behind F.mish at [6,512,512,16]; the
+// short form runs ahead of F.mish (cartseg_tpu_torch/tools/act_timing.py:
+// alternating cold-L2 pairs, SASS beside ATen's).
+// hswish is written in the plain version's operation order, and its
+// results are bit-equal to it: its division by 6 is a multiplication by
+// float32(1/6), which is how XLA compiles the Pallas kernel's `/ 6.0` and
+// how PyTorch's CUDA division by a Python number runs. mish and swish
+// differ from the plain version by a few ulps (mish's forward by its other
+// form, the rest where nvcc contracts a*b+c into an FMA).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -42,8 +48,13 @@ __device__ __forceinline__ float softplus20(float x) {
 }
 
 struct Mish {
+  // tanh(log1p(e)) = n / (n + 2) with e = exp(x), n = e (e + 2): one expf
+  // and a fast division in place of expf, log1pf and tanhf. n + 2 lies in
+  // [2, 2^58) wherever the guard does not return x, inside __fdividef's
+  // range (2 ulps); above 20, fp32's tanh(softplus(x)) is 1 and f = x.
   static __device__ __forceinline__ float f(float x) {
-    return x * tanhf(softplus20(x));
+    const float e = expf(x), n = e * (e + 2.0f);
+    return x > 20.0f ? x : x * __fdividef(n, n + 2.0f);
   }
   static __device__ __forceinline__ float d(float x) {
     const float t = tanhf(softplus20(x));

@@ -18,21 +18,24 @@ backward recomputes P = exp(logits - lse) tile by tile (Dao et al.):
     drel_h[i, kh] = sum_kw dS[i, kh*g+kw],  drel_w[i, kw] = sum_kh (same),
 
 the gradients in their inputs' types. Kernels: for the forward,
-csrc/flash_relpos.cu, whose C entry point keeps float32 on the CUDA cores
-(`flash_fwd`) and hands bfloat16 to the tensor-core kernel of
-csrc/flash_relpos_fwd_tc.cu (`flash_fwd_tc`: P rounded to bf16 as the
-operand of P V, as FlashAttention does); for the backward
-(`flash_bwd_dq`: dq, drel_h, drel_w; `flash_bwd_dkv`: dk, dv),
-csrc/flash_relpos_bwd.cu, whose C entry points run float32 on the tensor
-cores as split-TF32 products (`flash_bwd_dq_tf32x3`,
-`flash_bwd_dkv_tf32x3`: each fp32 operand cut into two TF32 halves, hi lo
-+ lo hi + hi hi summed in fp32, P, dS and every sum fp32; within 1e-5 of
-the plain version, tests/test_torch_flash_bwd_tf32x3.py) and hand bfloat16
-to the tensor-core kernels of csrc/flash_relpos_bwd_tc.cu (P and dS
-rounded to bf16 as the operands of the second products). D stays one
-PyTorch expression, as JAX leaves it to XLA. A wrapper given CPU tensors
-runs the plain version, which materialises the (bnh, S, S) logits; given
-CUDA tensors it launches its kernel or raises. Nothing falls back.
+csrc/flash_relpos.cu, whose C entry point runs float32 on the tensor cores
+as split-TF32 products (`flash_fwd_tf32x3`, counted as `flash_fwd`) and
+hands bfloat16 to the tensor-core kernel of csrc/flash_relpos_fwd_tc.cu
+(`flash_fwd_tc`: P rounded to bf16 as the operand of P V, as
+FlashAttention does); for the backward (`flash_bwd_dq`: dq, drel_h,
+drel_w; `flash_bwd_dkv`: dk, dv), csrc/flash_relpos_bwd.cu, whose C entry
+points run float32 on the tensor cores as split-TF32 products
+(`flash_bwd_dq_tf32x3`, `flash_bwd_dkv_tf32x3`) and hand bfloat16 to the
+tensor-core kernels of csrc/flash_relpos_bwd_tc.cu (P and dS rounded to
+bf16 as the operands of the second products). Split TF32
+(csrc/flash_tf32x3_common.cuh): each fp32 operand cut into two TF32
+halves, hi lo + lo hi + hi hi summed in fp32, the softmax, P, dS and every
+sum fp32; within 1e-5 of the plain versions (tests/test_torch_flash_fwd_
+tf32x3.py and tests/test_torch_flash_bwd_tf32x3.py emulate it on the CPU).
+D stays one PyTorch expression, as JAX leaves it to XLA. A wrapper given
+CPU tensors runs the plain version, which materialises the (bnh, S, S)
+logits; given CUDA tensors it launches its kernel or raises. Nothing falls
+back.
 """
 
 from __future__ import annotations
@@ -175,7 +178,7 @@ def flash_relpos_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      grid_size: int, with_lse: bool = False):
     """[bnh,S,hd] attention output, and with `with_lse` also the fp32
     [bnh,S] logsumexp for the backward (the inference call writes none).
-    CUDA: `flash_relpos_fwd` in csrc/flash_relpos.cu (float32, counted in
+    CUDA: `flash_fwd_tf32x3` in csrc/flash_relpos.cu (float32, counted in
     LAUNCHES["flash_fwd"]), `flash_fwd_tc` in csrc/flash_relpos_fwd_tc.cu
     (bfloat16, LAUNCHES["flash_fwd_tc"]); CPU: the plain versions. No
     autograd on the CUDA lane (see `flash_attention_relpos` in

@@ -44,19 +44,14 @@ SASS_KERNELS = {"float32": ("flash_bwd_dq_tf32x3ILi64ELb1E",
                              "flash_bwd_dkv_tcILi64ELb1E")}
 
 
-def sass_mix(library: Path, nvcc: str, names) -> dict:
-    """{kernel: {opcode: count}} of the SASS instructions (cuobjdump
-    -sass, beside nvcc) of the kernels whose mangled names hold one of
-    `names`: the code of one call, so a loop body counts once."""
-    cuobjdump = Path(nvcc).with_name("cuobjdump")
-    text = subprocess.run([str(cuobjdump), "-sass", str(library)],
-                          capture_output=True, text=True,
-                          check=True).stdout
+def opcode_counts(sass: str, key) -> dict:
+    """{key(function): {opcode: count}} of a cuobjdump -sass listing, over
+    the functions for which key(name) is not None: the code of one call,
+    so a loop body counts once."""
     mix, cur = {}, None
-    for line in text.splitlines():
+    for line in sass.splitlines():
         if "Function :" in line:
-            fn = line.split("Function :", 1)[1].strip()
-            cur = next((n for n in names if n in fn), None)
+            cur = key(line.split("Function :", 1)[1].strip())
             if cur is not None:
                 mix[cur] = collections.Counter()
         elif cur is not None:
@@ -65,6 +60,18 @@ def sass_mix(library: Path, nvcc: str, names) -> dict:
             if m:
                 mix[cur][m.group(1)] += 1
     return {k: dict(v.most_common()) for k, v in mix.items()}
+
+
+def sass_mix(library: Path, nvcc: str, names) -> dict:
+    """{kernel: {opcode: count}} of the SASS instructions (cuobjdump
+    -sass, beside nvcc) of the kernels whose mangled names hold one of
+    `names`, keyed by that name."""
+    cuobjdump = Path(nvcc).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(library)],
+                          capture_output=True, text=True,
+                          check=True).stdout
+    return opcode_counts(text, lambda fn: next(
+        (n for n in names if n in fn), None))
 
 
 def main(argv=None) -> int:

@@ -22,9 +22,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
      [6,512,512,8] logits with labels 0..7 and every 7th row ignored,
      loss atol 1e-5 and gradient atol 2e-6 at unit g; the decomposed
      rel-pos flash attention at the ViT-B global block [12,4096,64]
-     (max abs err within 1e-5 of max |plain| in fp32 on the CUDA cores,
-     1e-2 in bf16 on the tensor cores, the same bits twice), at the
-     tests' [2,256,32] fp32 and at a ragged [1,529,32] bf16; its training
+     (max abs err within 1e-5 of max |plain| in fp32, as split-TF32
+     products on the tensor cores, 1e-2 in bf16 on the tensor cores, the
+     same bits twice), at the tests' [2,256,32] fp32 and at a ragged
+     [1,529,32] in bf16 and in fp32; its training
      forward's lse (fp32 1e-5 of max |plain|, bf16 1e-5 absolute; out
      bit-equal to the inference call's) and the two backward kernels'
      five gradients at
@@ -114,14 +115,19 @@ Phases, in order; any failure raises and the exit code is non-zero:
   5. timing with CUDA events: the pseudo-label program per bs64 batch,
      the train step at bs6@512^2 (device-resident batch, loader
      excluded) and the ABL loss's share of it, SAM's set_image and
-     predict and the global blocks' share of set_image, the SAM fine-tune
+     predict and the global blocks' share of set_image, set_image's device
+     time by kernel (which must name the split-TF32 forward
+     flash_fwd_tf32x3), the fp32 forward at set_image's inputs against its
+     plain version, SDPA and its bound (split TF32 at the TF32 peak, the
+     CUDA-core bound beside), the SAM fine-tune
      step for both lanes with the global blocks' share and the device's
      busy share, its device time by kernel (which must name the bf16
      tensor-core kernels flash_fwd_tc, flash_bwd_dq_tc and
      flash_bwd_dkv_tc), the same step in fp32 (TF32 off) for both lanes
      in alternating pairs with its busy share and device time by kernel
-     (which must name the split-TF32 kernels flash_bwd_dq_tf32x3 and
-     flash_bwd_dkv_tf32x3) and, at the step's inputs, the bf16 training
+     (which must name the split-TF32 kernels flash_fwd_tf32x3,
+     flash_bwd_dq_tf32x3 and flash_bwd_dkv_tf32x3) and, at the step's
+     inputs, the bf16 training
      forward against its plain version and SDPA, the backward kernels in
      bf16 and fp32 against their plain versions, SDPA autograd and their
      bounds (fp32: split TF32 at the TF32 peak, the CUDA-core bound
@@ -144,7 +150,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
      F.mish / F.silu / F.hardswish and ATen's mish/silu/hardswish
      backward, and their bounds, then each activation forward and
      backward against its PyTorch call in ACT_PAIRS alternating cold-L2
-     pairs (medians and spread); the boundary workload's train step
+     pairs (medians and spread; the mish forward's line names the form
+     the kernel computes, MISH_FWD_FORM); the boundary workload's train step
      against the same step with BCE+Dice alone, its busy share and its
      4 edt launches.
 The line before the last holds the kernels' JSON record, the one before
@@ -222,11 +229,13 @@ F32_STEP_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # the bf16 forward's and backward's tensor-core kernels, as the profiler
 # names them
 TC_SYMBOLS = ("flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc")
-# the fp32 backward's split-TF32 tensor-core kernels, as the profiler
-# names them (csrc/flash_relpos_bwd.cu)
-F32_SYMBOLS = ("flash_bwd_dq_tf32x3", "flash_bwd_dkv_tf32x3")
-# TF32 products a fp32 product takes on the fp32 backward's route:
-# hi lo + lo hi + hi hi
+# the fp32 route's split-TF32 tensor-core kernels, as the profiler names
+# them: the forward (csrc/flash_relpos.cu) and the backward
+# (csrc/flash_relpos_bwd.cu)
+F32_FWD_SYMBOL = "flash_fwd_tf32x3"
+F32_SYMBOLS = (F32_FWD_SYMBOL, "flash_bwd_dq_tf32x3", "flash_bwd_dkv_tf32x3")
+# TF32 products a fp32 product takes on the fp32 route: hi lo + lo hi +
+# hi hi
 TF32_TERMS = 3
 SAM_TRAIN_STEPS = 3
 # resnet34-UNet: 36 BatchNorms in the encoder, 10 in the decoder; the
@@ -267,10 +276,11 @@ FLASH_LSE_TOL = 1e-5
 FLASH_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # (bnh, g, head_dim, type) of the flash kernels' checks against their
 # plain versions: the ViT-B global block in fp32 and bf16, the tests'
-# size, and a ragged bf16 grid (S = 529, not a multiple of the 64-row
-# tiles; the tensor-core backward's staged drel sums)
+# size, and a ragged grid in both types (S = 529, not a multiple of the
+# 64-row tiles; the keys past S masked, the staged drel sums)
 FLASH_CASES = ((12, 64, 64, torch.float32), (12, 64, 64, torch.bfloat16),
-               (2, 16, 32, torch.float32), (1, 23, 32, torch.bfloat16))
+               (2, 16, 32, torch.float32), (1, 23, 32, torch.bfloat16),
+               (1, 23, 32, torch.float32))
 # EDT shapes beside the path's [6,512,512]: frames before the letterbox,
 # classes that are ragged mod the split, one-block images, the largest side
 EDT_SHAPES = ((2, 400, 512), (3, 37, 53), (2, 1, 77), (1, 1, 1),
@@ -292,6 +302,10 @@ EDT_MAX_LAUNCHES = 3
 # alternating cold-L2 pairs of each activation forward against its
 # PyTorch call
 ACT_PAIRS = 7
+# the form csrc/activations.cu's mish forward computes, printed with its
+# pairs against F.mish
+MISH_FWD_FORM = ("x n / (n + 2), n = e (e + 2), e = expf(x), __fdividef, x "
+                 "above 20; 4 elements a thread, 256 threads a block")
 SAM_FRAMES = ((1024, 1024),) * 3 + ((512, 512),)   # create_testset, hard
 SAM_GLOBAL_BLOCKS = 4
 # the loss zoo's kernels (cartseg_tpu_torch.losses) and their path shapes:
@@ -324,6 +338,11 @@ ZOO_REF_TOL = (1e-4, 1e-5)
 # of fp32 outside the tensor cores and of bf16 and TF32 on them
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12, "tf32": 495e12}
+# windows of the profiler taken for one reading before it counts as lost,
+# and the pause before the second (the i-th waits i times as long)
+PROFILE_TRIES, PROFILE_PAUSE_S = 6, 0.5
+# the seconds of those pauses left to the run
+PROFILE_PAUSES_S = [60.0]
 
 
 def log(msg: str) -> None:
@@ -353,6 +372,26 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernel_trace(fn, calls: int = 1, keep=bool) -> dict:
+    """device_kernels of `calls` calls of fn, retaken while `keep(trace)`
+    is false, at most PROFILE_TRIES times, with a pause that grows between
+    tries; returns the last trace. The profiler on the H100 machines can
+    drop a window's events, a kernel's or all of them (a run read an empty
+    trace three windows in a row, each right after the last). The pauses
+    of a whole run draw on PROFILE_PAUSES_S, so a profiler that stays
+    broken costs the run a minute at most."""
+    from cartseg_tpu_torch.utils.profiling import device_kernels
+
+    for i in range(PROFILE_TRIES):
+        pause = min(PROFILE_PAUSE_S * i, PROFILE_PAUSES_S[0])
+        PROFILE_PAUSES_S[0] -= pause
+        time.sleep(pause)
+        trace = device_kernels(fn, calls)
+        if keep(trace):
+            break
+    return trace
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -364,13 +403,25 @@ def bytes_bound(n: int) -> tuple:
 
 
 def flash_bound(q: torch.Tensor, rel_h: torch.Tensor) -> tuple:
-    """The larger of the two products' FLOPs (4*bnh*S^2*hd) at the peak
-    for q's type and q, k, v, rel_h, rel_w, out once at the HBM rate."""
+    """The larger of the two products' FLOPs (4*bnh*S^2*hd) on the route's
+    units and q, k, v, rel_h, rel_w, out once at the HBM rate. bf16 runs
+    its products on the tensor cores at the bf16 peak; fp32 runs each as
+    TF32_TERMS TF32 products at the TF32 peak (the split-TF32 route;
+    `fwd_cuda_core_ms` gives its fp32 CUDA-core time, printed beside)."""
     bnh, S, hd = q.shape
-    t_ops = 4.0 * bnh * S * S * hd / PEAK_FLOPS[q.dtype] * 1e3
+    flops = 4.0 * bnh * S * S * hd
+    t_ops = (flops / PEAK_FLOPS[q.dtype] * 1e3 if q.dtype == torch.bfloat16
+             else TF32_TERMS * flops / PEAK_FLOPS["tf32"] * 1e3)
     t_bytes, _ = bytes_bound(4 * q.numel() * q.element_size()
                              + 2 * nbytes(rel_h))
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def fwd_cuda_core_ms(q: torch.Tensor) -> float:
+    """The forward's two fp32 products at the CUDA cores' fp32 peak, one
+    FMA a multiply-add: the bound of the route before split TF32."""
+    bnh, S, hd = q.shape
+    return 4.0 * bnh * S * S * hd / PEAK_FLOPS[torch.float32] * 1e3
 
 
 def bwd_flops(q: torch.Tensor, kernel: str) -> float:
@@ -405,18 +456,21 @@ def bwd_cuda_core_ms(q: torch.Tensor, kernel: str) -> float:
 
 
 # an H100 SM: shared memory for resident blocks (1 KB of it reserved a
-# block), 32-bit registers, threads a block of the fp32 backward
-SM_SMEM_BYTES, SMEM_RESERVED, SM_REGS, F32_BWD_THREADS = 233472, 1024, \
+# block), 32-bit registers, threads a block of the fp32 kernels
+SM_SMEM_BYTES, SMEM_RESERVED, SM_REGS, F32_THREADS = 233472, 1024, \
     65536, 128
 
 
-def f32_bwd_smem(kernel: str, hd: int, g: int) -> int:
-    """Dynamic shared memory of the fp32 backward kernels, as
-    csrc/flash_relpos_bwd.cu's dq_smem_bytes / dkv_smem_bytes size it:
-    [64][hd + 8] fp32 tiles (dq: Q, dO, 2 stages of K and V, and for
+def f32_smem(kernel: str, hd: int, g: int) -> int:
+    """Dynamic shared memory of the fp32 split-TF32 kernels, as
+    csrc/flash_relpos.cu's smem_bytes and csrc/flash_relpos_bwd.cu's
+    dq_smem_bytes / dkv_smem_bytes size it: [64][hd + 8] fp32 tiles (the
+    forward: 2 stages of K and V; dq: Q, dO, 2 stages of K and V, and for
     g != 64 the [64, g] drel sums and the staged [64][68] dS; dkv: K, V
     and 2 stages of Q, dO and three rows of 64)."""
     tile = 64 * (hd + 8)
+    if "fwd" in kernel:
+        return 4 * 4 * tile
     if "dkv" in kernel:
         return 4 * (2 * tile + 2 * (2 * tile + 3 * 64))
     floats = 6 * tile
@@ -426,9 +480,9 @@ def f32_bwd_smem(kernel: str, hd: int, g: int) -> int:
 
 
 def blocks_an_sm(regs: int, smem: int) -> int:
-    """Blocks of F32_BWD_THREADS threads an SM holds by registers
-    (allocated 8 a thread at a time) and by shared memory."""
-    per_block = -(-regs // 8) * 8 * F32_BWD_THREADS
+    """Blocks of F32_THREADS threads an SM holds by registers (allocated 8
+    a thread at a time) and by shared memory."""
+    per_block = -(-regs // 8) * 8 * F32_THREADS
     return min(SM_REGS // per_block, SM_SMEM_BYTES // (smem + SMEM_RESERVED))
 
 
@@ -474,10 +528,9 @@ def edt_kernels_a_call(seeds: torch.Tensor, calls: int = 10) -> tuple:
     as a list of names, which must hold 1 to EDT_MAX_LAUNCHES launches;
     and each kernel's mean device ms a launch."""
     from cartseg_tpu_torch.ops.cuda.edt import edt_batch_jfa
-    from cartseg_tpu_torch.utils.profiling import device_kernels
 
     edt_batch_jfa(seeds)
-    trace = device_kernels(lambda: edt_batch_jfa(seeds), calls)
+    trace = kernel_trace(lambda: edt_batch_jfa(seeds), calls)
     ms = {demangle(n): us / c / 1e3 for n, (c, us) in trace.items()}
     names = [demangle(n) for n, (c, _) in sorted(trace.items())
              for _ in range(round(c / calls))]
@@ -962,10 +1015,12 @@ def device_ms(fn, n: int, match: str = "", cold: bool = False) -> float:
     previous call left and runs faster than the HBM bound. The profiler
     can drop events from its window (runs on an H100 read 0 and a fifth
     of an activation's time): a window with no kernel of fn is taken
-    again, at most three times, and each kernel's launches count whole."""
-    from cartseg_tpu_torch.utils.profiling import device_kernels
-
+    again (kernel_trace), and each kernel's launches count whole. Where
+    every window came back without one, the time is CUDA events around
+    each call instead (after its flush), which holds the host's gaps
+    inside a call, and the log says so."""
     call = fn
+    flush = None
     if cold:
         flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
 
@@ -973,19 +1028,38 @@ def device_ms(fn, n: int, match: str = "", cold: bool = False) -> float:
             flush.zero_()
             fn()
 
-    call()
-    for _ in range(3):
-        trace = device_kernels(call, n)
-        hits = [(c, us) for name, (c, us) in trace.items()
+    def hits(trace):
+        return [(c, us) for name, (c, us) in trace.items()
                 if match in name and not (cold and "FillFunctor" in name)]
-        if hits:
-            break
-    else:
-        raise AssertionError(f"the profiler's traces of {n} calls held no "
-                             f"kernel of fn three times: {trace}")
-    # each kernel runs a fixed count a call: its time is its mean over the
-    # launches the trace holds times that count, ceil(launches / n)
-    return sum(us / c * -(-c // n) for c, us in hits) / 1e3
+
+    call()
+    trace = kernel_trace(call, n, keep=hits)
+    if hits(trace):
+        # each kernel runs a fixed count a call: its time is its mean over
+        # the launches the trace holds times that count, ceil(launches / n)
+        return sum(us / c * -(-c // n) for c, us in hits(trace)) / 1e3
+    ms = events_ms(fn, n, flush)
+    log(f"  (the profiler's {PROFILE_TRIES} windows of {n} calls held no "
+        f"kernel{f' named {match!r}' if match else ''} of the call, the "
+        f"last {trace}: timed by CUDA events around each call instead, "
+        f"{ms:.5f} ms)")
+    return ms
+
+
+def events_ms(fn, n: int, flush=None) -> float:
+    """Mean ms of n calls of fn, CUDA events around each call; `flush`, a
+    buffer zeroed before each call outside its events."""
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+    torch.cuda.synchronize()
+    for start, end in pairs:
+        if flush is not None:
+            flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / n
 
 
 def phase_train_timing(dev, card: str, hist) -> dict:
@@ -1457,10 +1531,10 @@ def flash_inputs(bnh: int, g: int, hd: int, dtype, dev) -> list:
 
 def phase_compare_flash(dev) -> dict:
     """The forward against its plain version at FLASH_CASES: the ViT-B
-    global block [12,4096,64] in fp32 (flash_fwd, CUDA cores) and bf16
-    (flash_fwd_tc, tensor cores), the tests' [2,256,32] fp32 and a ragged
-    [1,529,32] bf16; the same bits on a second call. Returns the max abs
-    error per case."""
+    global block [12,4096,64] in fp32 (flash_fwd_tf32x3, split TF32 on the
+    tensor cores) and bf16 (flash_fwd_tc, tensor cores), the tests'
+    [2,256,32] fp32 and a ragged [1,529,32] in bf16 and fp32; the same
+    bits on a second call. Returns the max abs error per case."""
     from cartseg_tpu_torch.ops.cuda.flash_attention import (
         flash_relpos_fwd, flash_relpos_fwd_plain)
 
@@ -1903,21 +1977,34 @@ def phase_sam_train(tmp: Path, dev) -> dict:
             "model": model, "x": x, "ckpt": ckpt}
 
 
-def device_op_ms(fn) -> dict:
-    """ms of each device kernel or copy, by name, summed over its launches
-    in one call of fn (profiler)."""
-    from cartseg_tpu_torch.utils.profiling import device_kernels
+def profile_naming(fn, symbols, what: str) -> dict:
+    """The device kernels and copies of one call of fn by name, ms summed
+    over their launches (profiler), which must name a kernel holding each
+    of `symbols`; logs its top kernels and those kernels. The profiler
+    can drop a kernel's events, so a profile that misses one is taken
+    again (kernel_trace, at most PROFILE_TRIES windows)."""
+    def found_in(trace):
+        return {sym: sorted((us / 1e3, n) for n, (_, us) in trace.items()
+                            if sym in n) for sym in symbols}
 
-    return {name: us / 1e3 for name, (_, us) in device_kernels(fn).items()}
-
-
-def top_device_ops(fn, n_top: int = 8, ms: dict = None) -> tuple:
-    """The device kernels and copies that take most time in one call of
-    fn (or in `ms`, device_op_ms's result), as (name, ms summed over their
-    launches), and their total ms."""
-    ms = device_op_ms(fn) if ms is None else ms
-    rows = sorted(ms.items(), key=lambda r: -r[1])
-    return rows[:n_top], sum(ms.values())
+    trace = kernel_trace(fn, keep=lambda t: t and all(found_in(t).values()))
+    ops = {name: us / 1e3 for name, (_, us) in trace.items()}
+    found = found_in(trace)
+    if not all(found.values()):
+        raise AssertionError(f"{what}'s profile names no "
+                             f"{[k for k, v in found.items() if not v]} "
+                             f"kernel in {PROFILE_TRIES} windows; the "
+                             f"last held {sorted(ops)[:20]}")
+    rows = sorted(ops.items(), key=lambda r: -r[1])[:8]
+    total = sum(ops.values())
+    log(f"  {what} device time by kernel (profiler, one call, {total:.3f} "
+        f"ms of kernels and copies): " + "; ".join(
+            f"{name[:70]} {ms:.3f}" for name, ms in rows))
+    if symbols:
+        log(f"  {', '.join(symbols)} in {what}'s profile: " + "; ".join(
+            f"{n[:60]} {ms:.3f} ms" for hits in found.values()
+            for ms, n in hits))
+    return ops
 
 
 def bwd_f64_distances(ts, do, scale: float, g: int, lanes: dict,
@@ -1944,8 +2031,9 @@ def bwd_f64_distances(ts, do, scale: float, g: int, lanes: dict,
 
 def phase_sam_timing(pred, frames, dev, card: str) -> dict:
     """set_image and predict on the card, the global blocks' share of
-    set_image, and flash_fwd against its plain version and
-    F.scaled_dot_product_attention at the inputs the path gives it."""
+    set_image, set_image's profile (which must name the split-TF32
+    forward, flash_fwd_tf32x3), and flash_fwd against its plain version
+    and F.scaled_dot_product_attention at the inputs the path gives it."""
     from cartseg_tpu_torch.ops import flash_attention as fa
     from cartseg_tpu_torch.ops.cuda import build
     from cartseg_tpu_torch.ops.cuda.flash_attention import (
@@ -1966,12 +2054,9 @@ def phase_sam_timing(pred, frames, dev, card: str) -> dict:
         for req in reqs:
             pred.predict(**req)
     pred_ms = (time.perf_counter() - t0) * 1e3 / (3 * len(reqs))
-    for what, fn in (("set_image", lambda: pred.set_image(img)),
-                     ("predict", lambda: pred.predict(**reqs[-1]))):
-        rows, total = top_device_ops(fn)
-        log(f"  {what} device time by kernel (profiler, one call, "
-            f"{total:.3f} ms of kernels and copies): " + "; ".join(
-                f"{name[:70]} {ms:.3f}" for name, ms in rows))
+    profile_naming(lambda: pred.set_image(img), (F32_FWD_SYMBOL,),
+                   "set_image")
+    profile_naming(lambda: pred.predict(**reqs[-1]), (), "predict")
 
     # the global blocks on the inputs set_image gives them, and the
     # kernel's arguments from the first of them
@@ -2031,11 +2116,14 @@ def phase_sam_timing(pred, frames, dev, card: str) -> dict:
         p2 = cuda_ms(plain, 5)
         b, by = flash_bound(ts[0], ts[3])
         out[dt] = ((k1 + k2) / 2, (p1 + p2) / 2, l1, b, by)
+        core = ("" if dt == torch.bfloat16 else
+                f" (split TF32, {TF32_TERMS} TF32 products a product; fp32 "
+                f"on the CUDA cores {fwd_cuda_core_ms(ts[0]):.5f} ms)")
         log(f"  flash_fwd [{bnh},{S},{q.shape[2]}] {dt} (the path's "
             f"inputs): kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/"
             f"{p2:.4f} ms, F.scaled_dot_product_attention with the bias "
             f"built beforehand {l1:.4f} ms (max abs diff to plain "
-            f"{lerr:.2e}); bound {b:.5f} ms ({by}), kernel at "
+            f"{lerr:.2e}); bound {b:.5f} ms ({by}){core}, kernel at "
             f"{b / ((k1 + k2) / 2):.3f} of it [{card}]")
     build.reset_launch_counts()
     return {"set_image_ms": set_mean, "predict_ms": pred_ms,
@@ -2071,23 +2159,12 @@ def phase_sam_train_timing(train: dict, dev, card: str) -> dict:
     f2 = cuda_ms(lambda: sam_step(model, x), 5)
     step_ms, plain_ms = (f1 + f2) / 2, (p1 + p2) / 2
     busy = _busy_share(lambda: sam_step(model, x), 3)
-    ops = device_op_ms(lambda: sam_step(model, x))
-    rows, total = top_device_ops(None, ms=ops)
-    log(f"  fine-tune step device time by kernel (profiler, one step, "
-        f"{total:.3f} ms of kernels and copies): " + "; ".join(
-            f"{name[:70]} {ms:.3f}" for name, ms in rows))
-    tc = {sym: sorted((ms, n) for n, ms in ops.items() if sym in n)
-          for sym in TC_SYMBOLS}
-    if not all(tc.values()):
-        raise AssertionError(f"the bf16 step's profile names no "
-                             f"{[k for k, v in tc.items() if not v]} kernel")
-    log("  the bf16 tensor-core kernels in the step's profile: "
-        + "; ".join(f"{n[:60]} {ms:.3f} ms" for found in tc.values()
-                    for ms, n in found))
+    profile_naming(lambda: sam_step(model, x), TC_SYMBOLS,
+                   "the bf16 fine-tune step")
 
     # the fp32 step (the model's default compute type, TF32 off): flash
     # lane against plain lane in alternating pairs, the busy share, and a
-    # profile that must name the split-TF32 backward kernels
+    # profile that must name the split-TF32 forward and backward kernels
     f32 = {flash: sam_train_model(train["ckpt"], flash, torch.float32, dev)
            for flash in (True, False)}
     for m in f32.values():
@@ -2097,20 +2174,8 @@ def phase_sam_train_timing(train: dict, dev, card: str) -> dict:
     q2 = cuda_ms(lambda: sam_step(f32[False], x), 3)
     g2 = cuda_ms(lambda: sam_step(f32[True], x), 3)
     busy32 = _busy_share(lambda: sam_step(f32[True], x), 3)
-    ops32 = device_op_ms(lambda: sam_step(f32[True], x))
-    rows32, total32 = top_device_ops(None, ms=ops32)
-    log(f"  fp32 fine-tune step device time by kernel (profiler, one step, "
-        f"{total32:.3f} ms of kernels and copies): " + "; ".join(
-            f"{name[:70]} {ms:.3f}" for name, ms in rows32))
-    found = {sym: sorted((ms, n) for n, ms in ops32.items() if sym in n)
-             for sym in F32_SYMBOLS}
-    if not all(found.values()):
-        raise AssertionError(f"the fp32 step's profile names no "
-                             f"{[k for k, v in found.items() if not v]} "
-                             f"kernel")
-    log("  the fp32 split-TF32 kernels in the step's profile: "
-        + "; ".join(f"{n[:60]} {ms:.3f} ms" for hits in found.values()
-                    for ms, n in hits))
+    profile_naming(lambda: sam_step(f32[True], x), F32_SYMBOLS,
+                   "the fp32 fine-tune step")
     f32_ms, f32_plain_ms = (g1 + g2) / 2, (q1 + q2) / 2
     log(f"  fine-tune step ViT-B 1024^2 fp32 (TF32 off) batch 1: flash lane "
         f"{g1:.3f}/{g2:.3f} ms, plain lane {q1:.3f}/{q2:.3f} ms; device "
@@ -2696,7 +2761,9 @@ def phase_zoo_timing(dev, card: str) -> dict:
             spread = max((max(v) - min(v)) / med[w]
                          for w, v in series.items())
             gap = (med["kernel"] - med["library"]) / med["library"]
-            log(f"  {kind}_{d} {list(ACT_SHAPES[0])} vs {lib_name}, "
+            form = (f" (the kernel computes {MISH_FWD_FORM})"
+                    if f"{kind}_{d}" == "mish_fwd" else "")
+            log(f"  {kind}_{d}{form} {list(ACT_SHAPES[0])} vs {lib_name}, "
                 f"{ACT_PAIRS} alternating cold-L2 pairs: median kernel "
                 f"{med['kernel']:.5f} ms, library {med['library']:.5f} ms, "
                 f"the kernel {gap:+.4f} relative; spread {spread:.4f}; "
@@ -2811,7 +2878,7 @@ def main() -> int:
             regs = int(used.split("Used ")[1].split()[0])
             # the general-g kernels at the largest grid the wrappers take
             g = 64 if g64 else MAX_GRID
-            smem = f32_bwd_smem(name, hd, g)
+            smem = f32_smem(name, hd, g)
             log(f"  {name}: {regs} registers, {smem} bytes of dynamic "
                 f"shared memory at g = {g}: {blocks_an_sm(regs, smem)} "
                 f"blocks an SM")

@@ -7,8 +7,9 @@ The kernels run only on the card (tests/test_torch_kernels_cuda.py holds
 them against the plain version there). What they do to the numbers can be
 checked here: `_split_tf32_numerics` below repeats their arithmetic. Each
 fp32 operand x of a product is cut into hi = tf32(x) and lo = tf32(x - hi),
-both rounded to nearest with ties away from zero (`_tf32`: the int32 view
-plus 0x1000, the low 13 bits cleared, as the kernels do), and each product
+both rounded to nearest with ties away from zero (`tf32` of
+tests/torch_port_helpers.py: the int32 view plus 0x1000, the low 13 bits
+cleared, as the kernels do), and each product
 is hi lo + lo hi, then + hi hi, summed in fp32 (the products of two TF32
 values are exact in fp32). P = exp2(scale log2(e) s + bias log2(e) -
 lse log2(e)) and dS = P (dP - D) stay fp32, as do drel_h and drel_w,
@@ -39,7 +40,8 @@ import jax.numpy as jnp
 
 from cartseg_tpu.ops.pallas import flash_attention as jfa
 from cartseg_tpu_torch.ops.cuda import flash_attention as cfa
-from torch_port_helpers import one_torch_thread  # noqa: F401
+from torch_port_helpers import (  # noqa: F401
+    mm_tf32x3, one_torch_thread, split_tf32, tf32)
 
 FP32_TOL = 1e-5
 NAMES = ("dq", "dk", "dv", "drel_h", "drel_w")
@@ -59,26 +61,6 @@ def _inputs(bnh, g, hd, seed=0):
     return [torch.from_numpy(a) for a in arrs], torch.from_numpy(do)
 
 
-def _tf32(x: torch.Tensor) -> torch.Tensor:
-    """x rounded to TF32, to nearest, ties away from zero."""
-    i = x.contiguous().view(torch.int32)
-    return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def _split(x: torch.Tensor):
-    hi = _tf32(x)
-    return hi, _tf32(x - hi)
-
-
-def _mm3(a: torch.Tensor, b: torch.Tensor, terms: int = 3) -> torch.Tensor:
-    """a @ b as the kernels' split-TF32 products: hi lo + lo hi, then
-    + hi hi, in fp32; `terms` = 1 keeps hi hi alone (one TF32 product)."""
-    (ah, al), (bh, bl) = _split(a), _split(b)
-    if terms == 1:
-        return ah @ bh
-    return (ah @ bl + al @ bh) + ah @ bh
-
-
 def _split_tf32_numerics(q, k, v, rel_h, rel_w, o, lse, do, scale: float,
                          grid_size: int, terms: int = 3):
     """(dq, dk, dv, drel_h, drel_w) with the kernels' arithmetic."""
@@ -87,13 +69,13 @@ def _split_tf32_numerics(q, k, v, rel_h, rel_w, o, lse, do, scale: float,
     g = int(grid_size)
     bias = (rel_h[:, :, :, None] + rel_w[:, :, None, :]).reshape(bnh, S, S)
     sl2 = torch.tensor(scale * LOG2E, dtype=f)
-    s = _mm3(q, k.transpose(1, 2), terms)
+    s = mm_tf32x3(q, k.transpose(1, 2), terms)
     p = torch.exp2(s * sl2 + (bias * LOG2E - lse[..., None] * LOG2E))
     delta = cfa.row_delta(o, do)
-    ds = p * (_mm3(do, v.transpose(1, 2), terms) - delta[..., None])
-    dq = _mm3(ds, k, terms) * scale
-    dk = _mm3(ds.transpose(1, 2), q, terms) * scale
-    dv = _mm3(p.transpose(1, 2), do, terms)
+    ds = p * (mm_tf32x3(do, v.transpose(1, 2), terms) - delta[..., None])
+    dq = mm_tf32x3(ds, k, terms) * scale
+    dk = mm_tf32x3(ds.transpose(1, 2), q, terms) * scale
+    dv = mm_tf32x3(p.transpose(1, 2), do, terms)
     ds4 = ds.reshape(bnh, S, g, g)
     return dq, dk, dv, ds4.sum(-1), ds4.sum(-2)
 
@@ -113,12 +95,12 @@ def test_tf32_rounding_is_to_nearest_ties_away():
     for sign in (0, 1):
         bits = (sign << 31) | (127 << 23) | man
         x = torch.from_numpy(bits.astype(np.uint32).view(np.float32))
-        got = _tf32(x).view(torch.int32).numpy().astype(np.int64) \
+        got = tf32(x).view(torch.int32).numpy().astype(np.int64) \
             & 0xFFFFFFFF
         kept = (man + 0x1000) >> 13 << 13
         want = (sign << 31) | ((127 << 23) + kept)
         assert np.array_equal(got, want), (sign, got, want)
-        hi, lo = _split(x)
+        hi, lo = split_tf32(x)
         err = (hi.double() + lo.double() - x.double()).abs()
         assert bool((err <= 2.0 ** -22 * x.double().abs()).all())
         assert not (lo.view(torch.int32) & 0x1FFF).any()

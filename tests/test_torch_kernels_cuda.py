@@ -15,7 +15,9 @@ kernels use expf/logf, which differ from torch's by ulps: loss atol
 4.2e-7 at [6,512,512,8]). The flash-attention forward sums its
 products and its online softmax in another order than the plain
 version's materialised softmax: max abs error within 1e-5 of the plain
-output's max |value| in float32 (CUDA cores, fp32 throughout), 1e-2 in
+output's max |value| in float32 (tensor cores as split-TF32 products, the
+softmax and every sum fp32; a CPU emulation of that arithmetic, tests/
+test_torch_flash_fwd_tf32x3.py, lands within 9.6e-7 of max |plain|), 1e-2 in
 bfloat16 (tensor cores: P rounded to bf16 once as the operand of P V,
 then the output once; the plain version rounds only the output; a CPU
 emulation of these rounding points, tests/test_torch_flash_fwd_
@@ -480,11 +482,34 @@ def test_flash_fwd_bf16_tensor_cores(cuda_device, bnh, g, hd):
     build.reset_launch_counts()
 
 
+def test_flash_fwd_fp32_at_the_largest_grid(cuda_device):
+    """An fp32 forward at g = MAX_GRID (S = 16384), head_dim 64, with and
+    without lse: the split-TF32 kernel's general-g path (the bias factors
+    read for each logit) within 1e-5 of the plain version's max |value|,
+    lse within 1e-5 relative, the same bits on a second call, one
+    flash_fwd launch a call."""
+    g = MAX_GRID
+    ts = [t.to(cuda_device) for t in _flash_inputs(1, g, 64, torch.float32)]
+    build.reset_launch_counts()
+    out = flash_relpos_fwd(*ts, 0.125, g)
+    out2, lse = flash_relpos_fwd(*ts, 0.125, g, with_lse=True)
+    out3, lse3 = flash_relpos_fwd(*ts, 0.125, g, with_lse=True)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_fwd"] == 3
+    want, lse_want = flash_relpos_fwd_lse_plain(*ts, 0.125, g)
+    assert out.dtype == torch.float32 and out.shape == (1, g * g, 64)
+    assert float((out - want).abs().max() / want.abs().max()) <= 1e-5
+    assert float((lse - lse_want).abs().max() / lse_want.abs().max()) <= 1e-5
+    assert torch.equal(out, out2) and torch.equal(out2, out3)
+    assert torch.equal(lse, lse3)
+    build.reset_launch_counts()
+
+
 def test_flash_fwd_routes_by_type(cuda_device):
-    """float32 runs the CUDA-core kernel (flash_relpos_fwd, counted as
+    """float32 runs the split-TF32 kernel (flash_fwd_tf32x3, counted as
     flash_fwd), bfloat16 the tensor-core kernel (flash_fwd_tc): one launch
     a call."""
-    for dt, sym in ((torch.float32, "flash_relpos_fwd"),
+    for dt, sym in ((torch.float32, "flash_fwd_tf32x3"),
                     (torch.bfloat16, "flash_fwd_tc")):
         ts = [t.to(cuda_device) for t in _flash_inputs(2, 16, 64, dt)]
         per_call = _kernels_a_call(lambda: flash_relpos_fwd(*ts, 0.125, 16))

@@ -182,6 +182,31 @@ def one_torch_thread():
     torch.set_num_threads(before)
 
 
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32, to nearest, ties away from zero: the int32 view
+    plus 0x1000, the low 13 bits cleared, as the split-TF32 flash kernels
+    round (csrc/flash_tf32x3_common.cuh)."""
+    i = x.contiguous().view(torch.int32)
+    return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    """(hi, lo) = (tf32(x), tf32(x - hi)): hi + lo holds x to ~2^-22."""
+    hi = tf32(x)
+    return hi, tf32(x - hi)
+
+
+def mm_tf32x3(a: torch.Tensor, b: torch.Tensor,
+              terms: int = 3) -> torch.Tensor:
+    """a @ b as the split-TF32 kernels' products: hi lo + lo hi, then
+    + hi hi, in fp32 (a product of two TF32 values is exact in fp32);
+    `terms` = 1 keeps hi hi alone (one TF32 product)."""
+    (ah, al), (bh, bl) = split_tf32(a), split_tf32(b)
+    if terms == 1:
+        return ah @ bh
+    return (ah @ bl + al @ bh) + ah @ bh
+
+
 def sam_mask_downscaling_shapes(cfg) -> dict:
     """Official-checkpoint shapes of the mask-prompt path
     (`prompt_encoder.mask_downscaling.*`), which neither package builds."""
