@@ -50,10 +50,12 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
-    # (fg, labels, B, H, W, connectivity, stream)
-    "cartseg_cc_label": (_P, _P, _I, _I, _I, _I, _P),
-    # (weak, strong, lab scratch, flag scratch, out, B, H, W, stream)
-    "cartseg_reach": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # (fg, labels, B, H, W, connectivity, tile rows, tile cols, aligned,
+    #  stream)
+    "cartseg_cc_label": (_P, _P) + (_I,) * 7 + (_P,),
+    # (weak, strong, slots scratch, out, B, H, W, tile rows, tile cols,
+    #  slots an image, aligned, stream)
+    "cartseg_reach": (_P,) * 4 + (_I,) * 7 + (_P,),
     # (x, hist scratch, state scratch, out, B, N, stream)
     "cartseg_median_nonneg": (_P, _P, _P, _P, _I, _I, _P),
     # (seeds, state, dist, B, H, W, split, steps, n_a, n_b, cells_a, tile,

@@ -3,8 +3,10 @@ their plain PyTorch versions.
 
 Counterpart of cartseg_tpu/ops/pallas/cc.py (`cc_batch_pallas`,
 `reach_batch_pallas`). A wrapper given a CPU tensor runs the plain
-version; given a CUDA tensor it launches the kernel (csrc/cc.cu) or
-raises. Nothing falls back.
+version; given a CUDA tensor it launches the kernels (csrc/cc.cu: tile
+labelling in shared memory, links where tiles meet, resolution; one
+launch when an image fits one tile, else three) on the tiles of `plan`,
+or raises. Nothing falls back.
 
 The plain versions port the JAX XLA lane's algorithm
 (cartseg_tpu/ops/connected_components.py:115-169): segmented row and
@@ -15,6 +17,9 @@ O(geodesic turns) sweeps, not O(diameter).
 
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
+
 import torch
 
 from cartseg_tpu_torch.ops.cuda import build as B
@@ -22,6 +27,57 @@ from cartseg_tpu_torch.ops.cuda import build as B
 # convergence checks of the plain fixpoint (two sweeps each), the JAX
 # lane's max_iter (connected_components.py:115); the kernels need none
 _MAX_CHECKS = 4096
+
+# csrc/cc.cu: the dynamic shared memory of three cc_tiles blocks an SM
+# (233472 bytes, 1 KB of it reserved a block), and the widest tile
+SMEM_BYTES = 76800
+MAX_COLS = 1024
+
+
+def tile_smem(rows: int, cols: int, reach: bool) -> int:
+    """Shared memory of a rows x cols tile, as csrc/cc.cu `tile_smem`
+    lays it out: a bitmask of the mask (and reach's seeds), 32-bit words
+    a row, then the forest over node 0 and the rows * cols pixels."""
+    words = rows * -(-cols // 32)
+    return 4 * (words * (2 if reach else 1) + rows * cols + 1)
+
+
+@dataclass(frozen=True)
+class CcPlan:
+    """The kernels' tiles for an H x W image: `rows` x `cols` pixels
+    (`tiles_down` x `tiles_across` of them, the last ones ragged), `smem`
+    bytes of shared memory a block, and reach's `slots`: the int32
+    entries of one image's forest over the tile sides that face another
+    tile (node 0, then 2 * cols + 2 * rows a tile, the columns' 2 * rows
+    only when tiles sit side by side)."""
+    rows: int
+    cols: int
+    tiles_down: int
+    tiles_across: int
+    smem: int
+    slots: int
+
+
+@functools.lru_cache(maxsize=64)
+def plan(h: int, w: int, reach: bool = False, smem: int = SMEM_BYTES,
+         max_cols: int = MAX_COLS) -> CcPlan:
+    """Tiles as wide as the image up to `max_cols` columns, as tall as
+    the largest power of two of rows whose tile fits `smem` bytes (at
+    most h): 32 x 512 at 512^2, 16 x 1024 at 2048^2."""
+    if h < 1 or w < 1:
+        raise ValueError(f"cc plan: empty {h}x{w} image")
+    cols = min(w, max_cols)
+    fixed = tile_smem(0, cols, reach)
+    fit = (smem - fixed) // (tile_smem(1, cols, reach) - fixed)
+    if fit < 1:
+        raise ValueError(f"cc plan: no row of {cols} columns fits {smem} B")
+    rows = min(1 << (fit.bit_length() - 1), h)
+    down, across = -(-h // rows), -(-w // cols)
+    slots = 1 + down * across * (2 * cols + (2 * rows if across > 1 else 0))
+    if slots >= 2 ** 31:
+        raise ValueError(f"cc plan: {slots} slots overflow int32")
+    return CcPlan(rows, cols, down, across, tile_smem(rows, cols, reach),
+                  slots)
 
 
 def _shift_fill(x: torch.Tensor, dy: int, dx: int, fill) -> torch.Tensor:
@@ -141,8 +197,8 @@ def cc_batch_plain(mask: torch.Tensor,
 
 def cc_batch(mask: torch.Tensor, connectivity: int = 8) -> torch.Tensor:
     """[B,H,W] bool -> [B,H,W] int32 min-flat-index labels (H*W on
-    background), 8- or 4-connectivity. CUDA: union-find kernel
-    (csrc/cc.cu); CPU: `cc_batch_plain`."""
+    background), 8- or 4-connectivity. CUDA: the union-find kernels of
+    csrc/cc.cu on `plan(H, W)`; CPU: `cc_batch_plain`."""
     _check_planes("cc_batch", mask)
     if connectivity not in (4, 8):
         raise ValueError(f"connectivity must be 4 or 8, got {connectivity}")
@@ -151,10 +207,15 @@ def cc_batch(mask: torch.Tensor, connectivity: int = 8) -> torch.Tensor:
     _check_cuda("cc_batch", mask)
     Bn, H, W = mask.shape
     labels = torch.empty((Bn, H, W), dtype=torch.int32, device=mask.device)
+    if mask.numel() == 0:
+        return labels
+    p = plan(H, W)
     lib = B.load_library()
     with torch.cuda.device(mask.device):
         rc = lib.cartseg_cc_label(mask.data_ptr(), labels.data_ptr(),
-                                  Bn, H, W, connectivity, B.stream_of(mask))
+                                  Bn, H, W, connectivity, p.rows, p.cols,
+                                  B.aligned16(mask, labels),
+                                  B.stream_of(mask))
     B.check(rc, "cc_batch")
     B.LAUNCHES["cc"] += 1
     return labels
@@ -173,22 +234,27 @@ def reach_batch_plain(weak: torch.Tensor,
 def reach_batch(weak: torch.Tensor, strong: torch.Tensor) -> torch.Tensor:
     """[B,H,W] bool x2 -> [B,H,W] bool: pixels of `weak` connected to a
     `strong` pixel through weak pixels (seeds outside `weak` are
-    ignored) — Canny's double-threshold hysteresis. CUDA: union-find
-    labeling plus a seed flag per component (csrc/cc.cu); CPU:
+    ignored) — Canny's double-threshold hysteresis. CUDA: the labelling
+    kernels of csrc/cc.cu over `weak` on `plan(H, W, reach=True)`, the
+    seeds united with a node below every pixel; CPU:
     `reach_batch_plain`."""
     _check_planes("reach_batch", weak, strong)
     if weak.device.type == "cpu":
         return reach_batch_plain(weak, strong)
     _check_cuda("reach_batch", weak, strong)
     Bn, H, W = weak.shape
-    lab = torch.empty((Bn, H, W), dtype=torch.int32, device=weak.device)
-    flag = torch.empty((Bn, H * W), dtype=torch.uint8, device=weak.device)
     out = torch.empty((Bn, H, W), dtype=torch.bool, device=weak.device)
+    if weak.numel() == 0:
+        return out
+    p = plan(H, W, reach=True)
+    slots = torch.empty((Bn, p.slots), dtype=torch.int32, device=weak.device)
     lib = B.load_library()
     with torch.cuda.device(weak.device):
         rc = lib.cartseg_reach(weak.data_ptr(), strong.data_ptr(),
-                               lab.data_ptr(), flag.data_ptr(),
-                               out.data_ptr(), Bn, H, W, B.stream_of(weak))
+                               slots.data_ptr(), out.data_ptr(), Bn, H, W,
+                               p.rows, p.cols, p.slots,
+                               B.aligned16(weak, strong, out),
+                               B.stream_of(weak))
     B.check(rc, "reach_batch")
     B.LAUNCHES["reach"] += 1
     return out

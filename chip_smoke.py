@@ -7,13 +7,18 @@ Phases, in order; any failure raises and the exit code is non-zero:
   1. the card's name and power limit (nvidia-smi); require_cuda();
   2. build the CUDA kernels from ops/cuda/csrc (nvcc), print the time
      and each kernel's registers and spills (-Xptxas -v), and for the
-     fp32 backward kernels their dynamic shared memory and blocks an SM;
+     fp32 backward kernels and cc_tiles their dynamic shared memory and
+     blocks an SM;
   3. each kernel against its plain PyTorch version on the card, on the
      same inputs: CC at 8- and 4-connectivity on [64,512,512] masks
      (blobs, uniform noise p=0.45, all-background, all-foreground, a
-     one-arm 512^2 spiral, cut rings); reach on the weak/strong maps of
+     one-arm 512^2 spiral, cut rings); CC at both and reach (1 % seeds)
+     on cart-like blob masks [64,512,512], blobs and noise at CC_SHAPES
+     (strip-ragged H, W of 77, 513 and 3000, one column) and a one-arm
+     [1,2048,2048] spiral; reach on the weak/strong maps of
      Canny runs on the synthetic frames; the median on |p-0.5|*2 rows of
-     [64,262144], rows with many duplicates and all-zero rows; the EDT
+     [64,262144], rows with many duplicates and all-zero rows (CC and
+     reach each twice); the EDT
      on [6,512,512] GT boundaries of blob masks plus a no-seed, a
      single-seed and an all-seed sample, and at EDT_SHAPES ([2,400,512],
      [3,37,53], [2,1,77], [1,1,1], [1,2048,2048]), each twice - all bit
@@ -112,7 +117,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
         history, .pth, sidecar and .last.pth, the .pth loading into the
         pseudo-labeller; edt launched at least 4 times a step, no other
         kernel;
-  5. timing with CUDA events: the pseudo-label program per bs64 batch,
+  5. timing with CUDA events: the pseudo-label program per bs64 batch;
+     CC on the path's masks, cart-like blobs and the mixed masks, and
+     reach on the path's Canny maps, beside their bounds, with the CUDA
+     kernels one call of each runs (1 to 3, and no memset) and the CC
+     cleanup layer split into the labelling kernel, the bincount area
+     count and the rest;
      the train step at bs6@512^2 (device-resident batch, loader
      excluded) and the ABL loss's share of it, SAM's set_image and
      predict and the global blocks' share of set_image, set_image's device
@@ -298,7 +308,15 @@ EDT_SHAPES = ((2, 400, 512), (3, 37, 53), (2, 1, 77), (1, 1, 1),
 EDT_OPS = 5
 EDT_KERNEL_OPS = 12
 OPS_PER_SM_CLOCK = 128
-EDT_MAX_LAUNCHES = 3
+# CUDA kernels one call of the EDT, CC or reach may run
+MAX_KERNELS_A_CALL = 3
+# CC and reach beside the path's [64,512,512]: H not a multiple of the
+# 32-row strip, W of 77 and 513 (no 16-byte loads), tiles side by side
+# (W above 1024), a one-column image; blobs, and noise at p = 0.45
+CC_SHAPES = ((4, 500, 512), (2, 300, 77), (2, 300, 513), (1, 40, 3000),
+             (2, 2000, 1))
+# cc_tiles: threads a block, and the threads an SM holds
+CC_THREADS, SM_THREADS = 512, 2048
 # alternating cold-L2 pairs of each activation forward against its
 # PyTorch call
 ACT_PAIRS = 7
@@ -521,23 +539,43 @@ def edt_bound(seeds: torch.Tensor, ops_a_candidate: int = EDT_OPS) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def edt_kernels_a_call(seeds: torch.Tensor, calls: int = 10) -> tuple:
-    """The device kernels one edt_batch_jfa call runs: each kernel's
+def kernels_a_call(fn, what: str, calls: int = 10) -> tuple:
+    """The device kernels and copies one call of fn runs: each one's
     launches over `calls` calls in the profiler's trace, over `calls` and
     rounded (the profiler can drop an event at the edge of its window),
-    as a list of names, which must hold 1 to EDT_MAX_LAUNCHES launches;
-    and each kernel's mean device ms a launch."""
-    from cartseg_tpu_torch.ops.cuda.edt import edt_batch_jfa
-
-    edt_batch_jfa(seeds)
-    trace = kernel_trace(lambda: edt_batch_jfa(seeds), calls)
+    as a list of names, which must hold 1 to MAX_KERNELS_A_CALL launches
+    and no memset; and each one's mean device ms a launch."""
+    fn()
+    trace = kernel_trace(fn, calls)
     ms = {demangle(n): us / c / 1e3 for n, (c, us) in trace.items()}
     names = [demangle(n) for n, (c, _) in sorted(trace.items())
              for _ in range(round(c / calls))]
-    if not 1 <= len(names) <= EDT_MAX_LAUNCHES:
-        raise AssertionError(f"{calls} edt calls ran the CUDA kernels "
-                             f"{trace}; want 1..{EDT_MAX_LAUNCHES} a call")
+    if not 1 <= len(names) <= MAX_KERNELS_A_CALL or any(
+            "memset" in n.lower() for n in names):
+        raise AssertionError(f"{calls} {what} calls ran {trace}; want 1.."
+                             f"{MAX_KERNELS_A_CALL} CUDA kernels a call and "
+                             "no memset")
     return names, ms
+
+
+def cc_occupancy(report: list) -> None:
+    """cc_tiles' registers (-Xptxas -v), dynamic shared memory at the
+    path's 512^2 (ops/cuda/cc.py `plan`) and blocks an SM by registers,
+    shared memory and threads."""
+    from cartseg_tpu_torch.ops.cuda.cc import plan
+
+    for name, used, _ in report:
+        if "cc_tiles" not in name:
+            continue
+        reach = "true>" in name.replace(" ", "") or "ILb1ELb1E" in name
+        p = plan(S, S, reach)
+        regs = int(used.split("Used ")[1].split()[0])
+        by_regs = SM_REGS // (-(-regs // 8) * 8 * CC_THREADS)
+        blocks = min(by_regs, SM_SMEM_BYTES // (p.smem + SMEM_RESERVED),
+                     SM_THREADS // CC_THREADS)
+        log(f"  {name}: {regs} registers, {p.smem} bytes of dynamic shared "
+            f"memory at {S}^2 ({p.rows} x {p.cols} tiles): {blocks} blocks "
+            f"an SM")
 
 
 def demangle(name: str) -> str:
@@ -579,18 +617,32 @@ def check_equal(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def cc_masks(rng: np.random.Generator) -> np.ndarray:
-    from cartseg_tpu_torch.utils.synthetic import (blob_masks,
-                                                   ring_cuts_mask,
-                                                   spiral_mask)
+    """Phase 3's mixed [64,512,512] masks (tools/cc_timing.py's): blobs,
+    noise, all background, all foreground, a spiral and cut rings."""
+    from cartseg_tpu_torch.tools.cc_timing import mixed_masks
 
-    m = np.zeros((B, S, S), bool)
-    m[:30] = blob_masks(rng, (30, S, S), n=8)
-    m[30:60] = rng.random((30, S, S)) < 0.45
-    # 60: all background; 61: all foreground
-    m[61] = True
-    m[62] = spiral_mask(S)
-    m[63] = ring_cuts_mask(S)
-    return m
+    return mixed_masks(rng, B, S)
+
+
+def check_cc_twice(name: str, m: torch.Tensor, seeds: torch.Tensor) -> float:
+    """CC at both connectivities and reach (weak m, strong seeds) against
+    their plain versions bit for bit, and the same bits on a second
+    call."""
+    from cartseg_tpu_torch.ops.cuda.cc import (cc_batch, cc_batch_plain,
+                                               reach_batch,
+                                               reach_batch_plain)
+
+    e = []
+    for conn in (8, 4):
+        got = cc_batch(m, conn)
+        e.append(check_equal(f"cc conn{conn} {name}", got,
+                             cc_batch_plain(m, conn)))
+        check_equal(f"cc conn{conn} {name} second call", cc_batch(m, conn),
+                    got)
+    got = reach_batch(m, seeds)
+    check_equal(f"reach {name}", got, reach_batch_plain(m, seeds))
+    check_equal(f"reach {name} second call", reach_batch(m, seeds), got)
+    return max(e)
 
 
 def edt_plan_text(shape) -> str:
@@ -646,23 +698,42 @@ def phase_compare(frames: np.ndarray, dev) -> dict:
                                                    median_rows_plain)
     from cartseg_tpu_torch.ops.edges import canny_weak_strong, rgb_to_gray
 
+    from cartseg_tpu_torch.utils.synthetic import blob_masks, spiral_mask
+
     rng = np.random.default_rng(SEED)
     err = {}
     masks = torch.from_numpy(cc_masks(rng)).to(dev)
     e = []
     for conn in (8, 4):
+        got = cc_batch(masks, conn)
         e.append(check_equal(f"cc conn{conn} [blobs|noise|bg|fg|spiral|"
-                             "rings]", cc_batch(masks, conn),
-                             cc_batch_plain(masks, conn)))
+                             "rings]", got, cc_batch_plain(masks, conn)))
+        check_equal(f"cc conn{conn} mixed second call", cc_batch(masks, conn),
+                    got)
+    # cart-like blobs at the path's shape, the ragged shapes and one
+    # 2048^2 spiral arm (16 x 1024 tiles, two across), seeds at 1 %
+    cases = [("blobs [64,512,512]", blob_masks(rng, (B, S, S), n=8))]
+    for shape in CC_SHAPES:
+        cases += [(f"blobs {list(shape)}", blob_masks(rng, shape)),
+                  (f"noise {list(shape)}", rng.random(shape) < 0.45)]
+    cases.append(("spiral [1,2048,2048]", spiral_mask(2048)[None]))
+    for name, m in cases:
+        seeds = m & (rng.random(m.shape) < 0.01)
+        if name.startswith("spiral"):
+            seeds[0, 0, 0] = True          # the arm's outer end
+        e.append(check_cc_twice(name, torch.from_numpy(m).to(dev),
+                                torch.from_numpy(seeds).to(dev)))
     err["cc"] = max(e)
 
     gray = rgb_to_gray(torch.from_numpy(frames).to(dev))
     weak, strong = canny_weak_strong(gray, 50.0, 150.0)
     log(f"  canny maps: weak {float(weak.float().mean()):.4f}, strong "
         f"{float(strong.float().mean()):.4f} of pixels")
-    err["reach"] = check_equal("reach [canny weak/strong]",
-                               reach_batch(weak, strong),
+    got = reach_batch(weak, strong)
+    err["reach"] = check_equal("reach [canny weak/strong]", got,
                                reach_batch_plain(weak, strong))
+    check_equal("reach [canny weak/strong] second call",
+                reach_batch(weak, strong), got)
 
     g = torch.Generator(device="cpu").manual_seed(SEED)
     p = torch.sigmoid(3 * torch.randn((B, S * S), generator=g))
@@ -852,14 +923,58 @@ def phase_timing(ckpts, frames: np.ndarray, dev, card: str) -> dict:
     for name, (b, by) in bounds.items():
         log(f"  {name}: bound {b:.5f} ms ({by}, {HBM_BYTES_PER_S:.3g} B/s)")
     # the path's masks depend on the weights (random init: near all-fg);
-    # phase 3's mixed masks are a harder input for both versions
-    mixed = torch.from_numpy(cc_masks(np.random.default_rng(SEED))).to(dev)
-    log(f"  cc on phase 3's mixed masks: kernel "
-        f"{cuda_ms(lambda: cc_batch(mixed), 20):.4f} ms, plain "
-        f"{cuda_ms(lambda: cc_batch_plain(mixed), 1):.4f} ms [{card}]")
+    # cart-like blobs and phase 3's mixed masks beside them
+    from cartseg_tpu_torch.utils.synthetic import blob_masks
+
+    rng = np.random.default_rng(SEED)
+    mixed = torch.from_numpy(cc_masks(rng)).to(dev)
+    blobs = torch.from_numpy(blob_masks(rng, (B, S, S), n=8)).to(dev)
+    for what, m in (("cart-like blob masks", blobs),
+                    ("phase 3's mixed masks", mixed)):
+        k1 = cuda_ms(lambda: cc_batch(m), 20)
+        k2 = cuda_ms(lambda: cc_batch(m), 20)
+        log(f"  cc on {what} [64,512,512]: kernel {k1:.4f}/{k2:.4f} ms, "
+            f"plain {cuda_ms(lambda: cc_batch_plain(m), 1):.4f} ms; bound "
+            f"{bounds['cc'][0]:.5f} ms, kernel at "
+            f"{2 * bounds['cc'][0] / (k1 + k2):.3f} of it [{card}]")
+    from cartseg_tpu_torch.ops.cuda.cc import plan
+
+    for name, fn in (("cc", lambda: cc_batch(pred_in)),
+                     ("cc conn4", lambda: cc_batch(pred_in, 4)),
+                     ("reach", lambda: reach_batch(weak, strong))):
+        names, ms = kernels_a_call(fn, name)
+        p = plan(S, S, name == "reach")
+        log(f"  {name} [64,512,512] ({p.rows} x {p.cols} tiles): "
+            f"{len(names)} CUDA kernels a call, no memset ({', '.join(names)}"
+            f"; the first version ran 3 for CC, 5 and a memset for reach); "
+            f"device ms a launch (profiler): " + ", ".join(
+                f"{n} {t:.4f}" for n, t in ms.items()) + f" [{card}]")
+    cc_cleanup_split(pred_in, int(S * S * 0.001), card)
     build.reset_launch_counts()
     return {"program_ms": ms, "kernels": times, "bounds": bounds,
             "library": library}
+
+
+def cc_cleanup_split(pred: torch.Tensor, min_area: int, card: str) -> None:
+    """The program's CC-cleanup layer (`remove_small_components`) on the
+    path's masks, CUDA events: the whole layer, its labelling kernel
+    (`cc_batch`), the area count's `torch.bincount` alone, and the rest
+    (the int64 keys, the gather of the areas, the compares)."""
+    from cartseg_tpu_torch.ops.connected_components import (
+        remove_small_components)
+    from cartseg_tpu_torch.ops.cuda.cc import cc_batch
+
+    n = S * S
+    lab = cc_batch(pred)
+    key = (lab.reshape(B, n).to(torch.int64) + (n + 1) * torch.arange(
+        B, device=pred.device).unsqueeze(1)).reshape(-1)
+    layer = cuda_ms(lambda: remove_small_components(pred, min_area), 20)
+    label = cuda_ms(lambda: cc_batch(pred), 20)
+    count = cuda_ms(lambda: torch.bincount(key, minlength=B * (n + 1)), 20)
+    log(f"  CC cleanup layer (remove_small_components, min_area {min_area})"
+        f" on the path's masks: {layer:.4f} ms = labelling kernel "
+        f"{label:.4f} + bincount area count {count:.4f} + the rest "
+        f"{layer - label - count:.4f} (keys, gather, compares) [{card}]")
 
 
 def make_train_tree(tmp: Path) -> tuple:
@@ -1151,7 +1266,9 @@ def phase_train_timing(dev, card: str, hist) -> dict:
         f"host sync, 48 train / 12 val images): "
         f"{[h['images_per_sec'] for h in hist]} [{card}]")
     outs = {name: kern() for name, (kern, _) in cases.items()}
-    names, stage_ms = edt_kernels_a_call(seeds)
+    from cartseg_tpu_torch.ops.cuda.edt import edt_batch_jfa
+
+    names, stage_ms = kernels_a_call(lambda: edt_batch_jfa(seeds), "edt")
     log(f"  edt [6,512,512] (the step's GT boundaries; plan "
         f"{edt_plan_text(seeds.shape)}): {len(names)} CUDA kernels a call "
         f"({', '.join(names)}; the old schedule ran 82); device ms a launch "
@@ -2835,7 +2952,7 @@ def phase_boundary_timing(dev, card: str) -> dict:
         k2 = cuda_ms(lambda: edt_batch_jfa(m), 20)
         p2 = cuda_ms(lambda: edt_batch_plain(m), 5)
         b, by = edt_bound(m)
-        names, _ = edt_kernels_a_call(m)
+        names, _ = kernels_a_call(lambda: edt_batch_jfa(m), "edt")
         edt_ms += (k1 + k2) / 2
         log(f"  edt on the SDF's {what}: kernel {k1:.4f}/{k2:.4f} ms, plain "
             f"{p1:.4f}/{p2:.4f} ms, {len(names)} CUDA kernels a call; bound "
@@ -2868,6 +2985,7 @@ def main() -> int:
     report = ptxas_report(build.BUILD_LOG["text"])
     for name, used, spill in report:
         log(f"  ptxas: {name[:90]}: {used}; {spill or 'no spill report'}")
+    cc_occupancy(report)
     for name, used, _ in report:
         if any(sym in name for sym in F32_SYMBOLS):
             # template arguments <HD, G64>, demangled or not

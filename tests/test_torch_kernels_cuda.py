@@ -140,6 +140,85 @@ def test_reach_kernel_spiral(cuda_device):
     assert torch.equal(reach_batch(weak, strong), weak)
 
 
+def _path_masks(kind, shape=(64, 512, 512)):
+    r = np.random.default_rng(3)
+    if kind == "blobs":
+        return blob_masks(r, shape, n=8)
+    if kind == "all_fg":
+        return np.ones(shape, bool)
+    return r.random(shape) < 0.45
+
+
+@pytest.mark.parametrize("kind", ["blobs", "all_fg", "noise"])
+def test_cc_reach_kernels_path_shape_equal_plain_twice(cuda_device, kind):
+    """The pseudo-label path's [64,512,512] (32-row strips, 16 a
+    image): CC at both connectivities and reach with 1 % seeds, bit for
+    bit, and the same bits on a second call."""
+    m = torch.from_numpy(_path_masks(kind)).to(cuda_device)
+    for conn in (8, 4):
+        got = cc_batch(m, conn)
+        again = cc_batch(m, conn)
+        torch.cuda.synchronize()
+        assert torch.equal(got, cc_batch_plain(m, conn))
+        assert torch.equal(got, again)
+    strong = m & (torch.rand(m.shape, generator=torch.Generator(
+        device=cuda_device).manual_seed(0), device=cuda_device) < 0.01)
+    got = reach_batch(m, strong)
+    again = reach_batch(m, strong)
+    torch.cuda.synchronize()
+    assert torch.equal(got, reach_batch_plain(m, strong))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("shape", [(2, 500, 512), (2, 300, 77),
+                                   (2, 300, 513), (1, 40, 3000),
+                                   (2, 2000, 1)])
+def test_cc_reach_kernels_ragged_tiles(cuda_device, shape):
+    """H not a multiple of the strip, W of 77 and 513 (no 16-byte
+    loads), tiles side by side (W above 1024 columns) and one-column
+    images: blobs and noise, bit for bit."""
+    for kind in ("blobs", "noise"):
+        m = torch.from_numpy(_path_masks(kind, shape)).to(cuda_device)
+        for conn in (8, 4):
+            assert torch.equal(cc_batch(m, conn), cc_batch_plain(m, conn))
+        strong = m & torch.from_numpy(
+            np.random.default_rng(4).random(shape) < 0.02).to(cuda_device)
+        assert torch.equal(reach_batch(m, strong),
+                           reach_batch_plain(m, strong))
+
+
+def test_cc_reach_kernels_2048_spiral(cuda_device):
+    """One spiral arm over [1,2048,2048] (16 x 1024 tiles, two across):
+    every arm pixel takes label 0, the arm's first pixel; reach from the
+    outer end takes the whole arm, from off the arm nothing."""
+    weak = torch.from_numpy(spiral_mask(2048)[None]).to(cuda_device)
+    n = 2048 * 2048
+    want = torch.where(weak, 0, n).to(torch.int32)
+    for conn in (8, 4):
+        assert torch.equal(cc_batch(weak, conn), want)
+    strong = torch.zeros_like(weak)
+    strong[0, 0, 0] = True
+    assert torch.equal(reach_batch(weak, strong), weak)
+    strong[0, 0, 0] = False
+    strong[0, 1, 5] = True                 # the gap under the first side
+    assert not weak[0, 1, 5]
+    assert not reach_batch(weak, strong).any()
+
+
+@pytest.mark.parametrize("which", ["cc8", "cc4", "reach"])
+def test_cc_reach_calls_run_at_most_three_kernels(cuda_device, which):
+    """One call at [64,512,512] runs cc_tiles, cc_borders, cc_tiles (the
+    first version ran 3 for CC, 5 and a memset for reach), and reach no
+    memset."""
+    m = torch.from_numpy(_path_masks("blobs")).to(cuda_device)
+    fn = ((lambda: reach_batch(m, m)) if which == "reach"
+          else (lambda: cc_batch(m, int(which[2]))))
+    per_call = _kernels_a_call(fn)
+    assert 1 <= sum(per_call.values()) <= 3, per_call
+    assert any("cc_tiles" in n for n in per_call), per_call
+    assert not any("memset" in n.lower() for n in per_call), per_call
+
+
 @pytest.mark.parametrize("B,N", [(5, 50177), (3, 1), (2, 2), (1, 128),
                                  (4, 262144)])
 def test_median_kernel_equals_plain(cuda_device, B, N):
