@@ -6,7 +6,8 @@ plain C interface, at first use, into `ops/cuda/_build/` (listed in
 one nvcc process each, and are then linked:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-         -Xcompiler -fPIC -Xptxas -v -c -o <name>.o csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -DCARTSEG_MEDIAN_MAX_SLICE=40960
+         -c -o <name>.o csrc/<name>.cu
     nvcc -gencode arch=compute_90a,code=sm_90a -shared
          -o _build/libcartseg_kernels_<hash>.so *.o
 
@@ -34,8 +35,13 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
+# constants that a wrapper's planner and its kernel share, passed to nvcc
+# as -D: the most elements a median cluster-route CTA holds in shared
+# memory (160 KB; csrc/median.cu asserts that it fits)
+DEFINES = {"CARTSEG_MEDIAN_MAX_SLICE": 40960}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              *(f"-D{k}={v}" for k, v in DEFINES.items()))
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 LAUNCHES = {"cc": 0, "reach": 0, "median": 0, "edt": 0, "lsr_fwd": 0,
@@ -56,15 +62,16 @@ _SIGNATURES = {
     # (weak, strong, slots scratch, out, B, H, W, tile rows, tile cols,
     #  slots an image, aligned, stream)
     "cartseg_reach": (_P,) * 4 + (_I,) * 7 + (_P,),
-    # (x, hist scratch, state scratch, out, B, N, stream)
-    "cartseg_median_nonneg": (_P, _P, _P, _P, _I, _I, _P),
+    # (x, hist scratch, state scratch, out, B, N, cluster, slice, stream)
+    "cartseg_median_nonneg": (_P, _P, _P, _P) + (_I,) * 4 + (_P,),
     # (seeds, state, dist, B, H, W, split, steps, n_a, n_b, cells_a, tile,
     #  halo, cells_b, stream)
     "cartseg_edt": (_P, _P, _P) + (_I,) * 4 + (_P,) + (_I,) * 6 + (_P,),
     # (x, labels, loss, n, C, lb_pos, lb_neg, ignore, stream)
     "cartseg_lsr_fwd": (_P, _P, _P, _L, _I, _F, _F, _I, _P),
-    # (x, labels, g, grad, n, C, lb_pos, lb_neg, ignore, stream)
-    "cartseg_lsr_bwd": (_P, _P, _P, _P, _L, _I, _F, _F, _I, _P),
+    # (x, labels, g, grad, n, C, lb_pos, lb_neg, ignore, labels int64, vec,
+    #  stream)
+    "cartseg_lsr_bwd": (_P, _P, _P, _P, _L, _I, _F, _F, _L, _I, _I, _P),
     # (q, k, v, rel_h, rel_w, out, lse or null, bnh, S, g, hd, bf16, scale,
     #  stream)
     "cartseg_flash_relpos_fwd": (_P,) * 7 + (_I,) * 5 + (_F, _P),

@@ -2,12 +2,17 @@
 `StepTimer`): wall-clock step stats whose rates land in the metrics
 CSV. The JAX `maybe_trace` (jax.profiler) is not ported: `trace_dir`
 raises NotImplementedError in the port (train/config.py). Beside it,
-`device_kernels`: the kernels a call runs on the card, from
-torch.profiler's trace."""
+the operations a call runs on the card: `device_kernels`, with their
+device times, from torch.profiler's trace (which can lose events), and
+`graph_nodes`, every one of them, from a CUDA graph of the call."""
 
 from __future__ import annotations
 
+import os
+import re
+import tempfile
 import time
+import warnings
 
 
 class StepTimer:
@@ -54,3 +59,55 @@ def device_kernels(fn, calls: int = 1) -> dict:
             n, us = out.get(e.name, (0, 0.0))
             out[e.name] = (n + 1, us + e.time_range.elapsed_us())
     return out
+
+
+def graph_nodes(fn) -> list:
+    """(kind, symbol) of each operation one call of fn puts on the card, in
+    the order the call enqueues them: fn is captured into a CUDA graph
+    (not run) and the nodes are read from the graph's DOT dump
+    (`parse_graph_dot`). Unlike the profiler's trace, the graph holds
+    every operation of the call. fn must not wait for the card (capture
+    refuses a synchronising call) and should have run once before, so
+    that lazy set-up stays out of the graph."""
+    import torch
+
+    torch.cuda.synchronize()
+    try:
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+    except TypeError:   # older torch: debug mode alone keeps the graph
+        g = torch.cuda.CUDAGraph()
+    g.enable_debug_mode()
+    with torch.cuda.graph(g):
+        fn()
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "call.dot")
+        with warnings.catch_warnings():   # torch warns that it dumps
+            warnings.simplefilter("ignore")
+            g.debug_dump(path)
+        if not os.path.exists(path):
+            raise RuntimeError("CUDAGraph.debug_dump wrote no dump")
+        with open(path) as f:
+            text = f.read()
+    del g
+    nodes = parse_graph_dot(text)
+    if not nodes:
+        raise RuntimeError(f"the CUDA graph's dump holds no node; it "
+                           f"begins {text[:600]!r}")
+    return nodes
+
+
+def parse_graph_dot(text: str) -> list:
+    """(kind, symbol) of each node of a CUDA graph's DOT dump
+    (cudaGraphDebugDotPrint), in the dump's order: kind is the node's
+    type as the dump names it (KERNEL, MEMSET, MEMCPY, ...), symbol a
+    kernel's mangled name, and the kind for any other node."""
+    nodes = []
+    for label in re.findall(r'"graph_\d+_node_\d+"\s*\[.*?label="((?:[^"\\]'
+                            r'|\\.)*)"', text, re.S):
+        kind = re.match(r"[{\s]*(\w+)", label).group(1).upper()
+        sym = None
+        if kind == "KERNEL":   # a C++ symbol, else the name in the ID row
+            sym = (re.search(r"\b(_Z\w+)", label)
+                   or re.search(r"ID \|[^|]*\|\s*([^\s\\}]+)", label))
+        nodes.append((kind, sym.group(1) if sym else kind))
+    return nodes

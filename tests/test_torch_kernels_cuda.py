@@ -52,6 +52,8 @@ within 1e-6 relative (fp32 sums of non-negative terms in another order,
 about twenty additions deep), and the same bits on a second run.
 """
 
+from collections import Counter
+
 import numpy as np
 import pytest
 import torch
@@ -67,14 +69,16 @@ from cartseg_tpu_torch.ops.cuda.flash_attention import (
     flash_relpos_fwd_lse_plain, flash_relpos_fwd_plain)
 from cartseg_tpu_torch.ops.cuda.lsr import (lsr_bwd, lsr_bwd_plain, lsr_fwd,
                                             lsr_fwd_plain)
-from cartseg_tpu_torch.ops.cuda.median import median_rows, median_rows_plain
+from cartseg_tpu_torch.ops.cuda.median import (MAX_SLICE, MedianPlan,
+                                               _launch, _plan, median_rows,
+                                               median_rows_plain, plan)
 from cartseg_tpu_torch.ops.cuda.activations import (act_bwd, act_bwd_plain,
                                                     act_fwd, act_fwd_plain)
 from cartseg_tpu_torch.ops.cuda.focal import focal_fwd, focal_plain
 from cartseg_tpu_torch.ops.cuda.one_hot import one_hot, one_hot_plain
 from cartseg_tpu_torch.ops.cuda.soft_dice import (soft_dice_sums,
                                                   soft_dice_sums_plain)
-from cartseg_tpu_torch.utils.profiling import device_kernels
+from cartseg_tpu_torch.utils.profiling import graph_nodes
 from cartseg_tpu_torch.utils.synthetic import (blob_masks, edt_seeds,
                                                ring_cuts_mask, spiral_mask)
 from torch_port_helpers import cuda_device, sam_official_state_dict  # noqa: F401
@@ -234,6 +238,111 @@ def test_median_kernel_equals_plain(cuda_device, B, N):
     assert torch.equal(got, median_rows_plain(t))
 
 
+def _conf_rows(B, N, seed=0):
+    """|p - 0.5| * 2 rows as the pseudo-label path makes them: skewed
+    toward 1, so the first radix digits crowd a few bins."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    p = torch.sigmoid(3 * torch.randn((B, N), generator=g))
+    return (p - 0.5).abs() * 2.0
+
+
+def test_median_kernel_path_shape_equal_plain_twice(cuda_device):
+    """[64,262144] on the cluster route (8 CTAs of 32768): the path's
+    skewed rows, rows with many duplicates, rows of two values and
+    all-zero rows, bit for bit, and the same bits on a second call."""
+    x = _conf_rows(64, 512 * 512)
+    x[40:56] = torch.round(x[40:56] * 16) / 16
+    x[56:60] = torch.where(x[56:60] > 0.5, 1.0, 0.0)
+    x[60:] = 0.0
+    t = x.to(cuda_device)
+    assert plan(t.shape[1]) == MedianPlan("cluster", 8, 32768)
+    got = median_rows(t)
+    again = median_rows(t)
+    torch.cuda.synchronize()
+    assert torch.equal(got, median_rows_plain(t))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("n,cluster", [(4099, 1), (50177, 2), (100001, 4),
+                                       (200003, 8), (9, 8)])
+def test_median_kernel_each_cluster_size(cuda_device, n, cluster):
+    """Each cluster size `plan` picks, rows not 16-byte aligned (odd N),
+    and N = 9 on 8 CTAs of 2 (three CTAs hold nothing)."""
+    p = plan(n) if n > 9 else _plan(n, slice_cap=1)
+    assert (p.route, p.cluster) == ("cluster", cluster)
+    t = _conf_rows(5, n, seed=n).to(cuda_device)
+    got = _launch(t, p)
+    torch.cuda.synchronize()
+    assert torch.equal(got, median_rows_plain(t))
+    assert torch.equal(_launch(t, p), got)
+
+
+def test_median_kernel_long_rows_take_the_stream_route(cuda_device):
+    """Rows past what a cluster of 8 holds (8 x MAX_SLICE elements) go
+    the stream route, chosen by `plan` from N before the launch."""
+    n = 8 * MAX_SLICE + 1
+    assert plan(n) == MedianPlan("stream", 0, 0)
+    t = _conf_rows(3, n, seed=1).to(cuda_device)
+    t[1] = 0.0
+    got = median_rows(t)
+    torch.cuda.synchronize()
+    assert torch.equal(got, median_rows_plain(t))
+    assert torch.equal(median_rows(t), got)
+
+
+def test_median_call_runs_one_kernel_and_no_memset(cuda_device):
+    """At the path's [64,262144] one call is one CUDA kernel (the first
+    version ran 13 and 4 memsets)."""
+    t = _conf_rows(64, 512 * 512).to(cuda_device)
+    per_call = _kernels_a_call(lambda: median_rows(t))
+    assert sum(per_call.values()) == 1, per_call
+    assert any("median_cluster" in n for n in per_call), per_call
+
+
+@pytest.mark.parametrize("label_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("C,offset", [(8, 0), (2, 0), (16, 0), (5, 0),
+                                      (8, 1)])
+def test_lsr_bwd_routes_within_tolerance_of_plain(cuda_device, C, offset,
+                                                  label_dtype):
+    """The vector route (C = 2, 8, 16 on aligned rows) and the general
+    route (C = 5, and C = 8 on rows that start 4 bytes past a 16-byte
+    boundary), with int32 and int64 labels read as they are; ignored rows
+    zero."""
+    from cartseg_tpu_torch.ops.cuda.lsr import bwd_route
+
+    g = torch.Generator(device="cpu").manual_seed(C + offset)
+    n = 4098
+    flat = torch.randn((n * C + offset,), generator=g) * 3
+    x = flat.to(cuda_device)[offset:].view(n, C)
+    assert bwd_route(x) == ("vector" if C != 5 and not offset
+                            else "general")
+    lab = torch.randint(0, C, (n,), generator=g)
+    lab[::7] = 255
+    lab = lab.to(label_dtype).to(cuda_device)
+    up = torch.randn((n,), generator=g).to(cuda_device)
+    ones = torch.ones_like(up)
+    b = lsr_bwd(x, lab, ones, 0.2, 255)
+    torch.cuda.synchronize()
+    assert (b - lsr_bwd_plain(x, lab, ones, 0.2, 255)).abs().max() <= 2e-6
+    b = lsr_bwd(x, lab, up, 0.2, 255)
+    assert (b - lsr_bwd_plain(x, lab, up, 0.2, 255)).abs().max() <= 1e-5
+    assert torch.all(b[::7] == 0)
+
+
+def test_lsr_bwd_int64_labels_launch_no_conversion(cuda_device):
+    """An int64-label call at the ABL path's [6*512*512, 8] is the one
+    vector-route kernel: no label conversion, no copy."""
+    g = torch.Generator(device="cpu").manual_seed(0)
+    n = 6 * 512 * 512
+    x = (torch.randn((n, 8), generator=g) * 3).to(cuda_device)
+    lab = torch.randint(0, 8, (n,), generator=g).to(cuda_device)
+    up = torch.randn((n,), generator=g).to(cuda_device)
+    assert lab.dtype == torch.int64
+    per_call = _kernels_a_call(lambda: lsr_bwd(x, lab, up, 0.2, 255))
+    assert sum(per_call.values()) == 1, per_call
+    assert all("lsr_bwd_vec" in n for n in per_call), per_call
+
+
 @pytest.mark.parametrize("kind", ["random", "blobs", "none", "single",
                                   "all"])
 @pytest.mark.parametrize("shape", [(3, 48, 64), (2, 37, 53), (1, 1, 1),
@@ -276,13 +385,12 @@ def test_edt_kernel_path_shapes_equal_plain_twice(cuda_device, shape):
     assert torch.equal(got, again)
 
 
-def _kernels_a_call(fn, calls=10):
-    """Each CUDA kernel's launches a call of fn, from the profiler's trace
-    of `calls` calls, rounded: the profiler can drop an event at the edge
-    of its window."""
+def _kernels_a_call(fn):
+    """Each operation's count in one call of fn (a kernel by its mangled
+    symbol, a memset or copy by its kind), from a CUDA graph of the call:
+    unlike the profiler's trace, it loses no event."""
     fn()
-    return {n: round(c / calls)
-            for n, (c, _) in device_kernels(fn, calls).items()}
+    return dict(Counter(sym for _, sym in graph_nodes(fn)))
 
 
 def test_edt_call_runs_at_most_three_kernels(cuda_device):

@@ -163,6 +163,48 @@ def test_lsr_ce_equals_autograd_of_v1_math():
     np.testing.assert_allclose(a.grad.numpy(), b.grad.numpy(), atol=1e-6)
 
 
+@pytest.mark.parametrize("label_dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("C", [8, 5])
+def test_lsr_bwd_plain_matches_jax_bwd_rule(C, label_dtype):
+    """`lsr_bwd_plain` (what the CUDA kernel is held to on the card)
+    against the TPU kernel's backward `_bwd_rule` in interpret mode, with
+    labels as they arrive (int32, or int64 as the ABL path's argmin
+    gives them; the JAX side takes them as int32) and ignored rows, at
+    the kernel's vector-route C = 8 and a general-route C = 5."""
+    from cartseg_tpu.ops.pallas.lsr import _bwd_rule
+
+    from cartseg_tpu_torch.ops.cuda.lsr import lsr_bwd_plain
+
+    x, lab, g = _lsr_inputs(C, seed=20 + C)
+    lab = lab.astype(label_dtype)
+    lab[1, 3:] = 255
+    (jg, _) = _bwd_rule(0.2, 255, (jnp.asarray(x), jnp.asarray(lab)),
+                        jnp.asarray(g))
+    got = lsr_bwd_plain(torch.from_numpy(x.reshape(-1, C)),
+                        torch.from_numpy(lab.reshape(-1)),
+                        torch.from_numpy(g.reshape(-1)), 0.2, 255)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy().reshape(x.shape),
+                               np.asarray(jg), atol=1e-6)
+    assert np.all(got.numpy()[lab.reshape(-1) == 255] == 0)
+
+
+def test_lsr_bwd_route_by_shape_and_alignment():
+    """The CUDA backward's vector route takes C in (2, 4, 8, 16) with
+    16-byte aligned rows (an even N at C = 2); the rest goes the general
+    route. Decided from the tensor alone, before any launch."""
+    from cartseg_tpu_torch.ops.cuda.lsr import VEC_CLASSES, bwd_route
+
+    assert VEC_CLASSES == (2, 4, 8, 16)
+    for C in VEC_CLASSES:
+        assert bwd_route(torch.zeros((6, C))) == "vector"
+    assert bwd_route(torch.zeros((6, 5))) == "general"
+    assert bwd_route(torch.zeros((7, 2))) == "general"
+    flat = torch.zeros(8 * 6 + 1)
+    assert bwd_route(flat[1:].view(6, 8)) == "general"   # 4-byte offset
+    assert bwd_route(flat[:48].view(6, 8)) == "vector"
+
+
 # -------------------------------------------------------------- ABL
 
 # One shape for every ABL case: JAX compiles each eager op of its
