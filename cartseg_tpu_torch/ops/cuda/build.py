@@ -67,8 +67,9 @@ _SIGNATURES = {
     # (seeds, state, dist, B, H, W, split, steps, n_a, n_b, cells_a, tile,
     #  halo, cells_b, stream)
     "cartseg_edt": (_P, _P, _P) + (_I,) * 4 + (_P,) + (_I,) * 6 + (_P,),
-    # (x, labels, loss, n, C, lb_pos, lb_neg, ignore, stream)
-    "cartseg_lsr_fwd": (_P, _P, _P, _L, _I, _F, _F, _I, _P),
+    # (x, labels, loss, n, C, lb_pos, lb_neg, ignore, labels int64, vec,
+    #  stream)
+    "cartseg_lsr_fwd": (_P, _P, _P, _L, _I, _F, _F, _L, _I, _I, _P),
     # (x, labels, g, grad, n, C, lb_pos, lb_neg, ignore, labels int64, vec,
     #  stream)
     "cartseg_lsr_bwd": (_P, _P, _P, _P, _L, _I, _F, _F, _L, _I, _I, _P),
@@ -81,9 +82,9 @@ _SIGNATURES = {
     # (q, k, v, rel_h, rel_w, dO, lse, D, dk, dv, bnh, S, g, hd, bf16,
     #  scale, stream)
     "cartseg_flash_relpos_bwd_dkv": (_P,) * 10 + (_I,) * 5 + (_F, _P),
-    # (a, b, partials, out, a_bf16, b_bf16, same, nhwc, N, C, HW, vec, P,
-    #  tc, R, stream)
-    "cartseg_channel_sums": (_P,) * 4 + (_I,) * 4 + (_L, _I, _L) + (_I,) * 4
+    # (a, b, partials, counters, out, a_bf16, b_bf16, same, nhwc, N, C, HW,
+    #  vec, P, tc, stream)
+    "cartseg_channel_sums": (_P,) * 5 + (_I,) * 4 + (_L, _I, _L) + (_I,) * 3
     + (_P,),
     # (x, y, loss, grad, n, gamma, alpha, vec, stream)
     "cartseg_focal": (_P,) * 4 + (_L, _F, _F, _I, _P),

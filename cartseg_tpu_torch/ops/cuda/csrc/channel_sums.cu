@@ -11,24 +11,36 @@
 //
 // Bound on this card: memory bandwidth. One or two full reads of the
 // inputs and a few FMAs an element; at resnet34-UNet's 512^2 bs6 a BN
-// layer sees 4.7e6 (layer4) to 2.5e7 (stem, decoder top) elements.
+// layer sees 7.9e5 (layer4) to 2.5e7 (stem, decoder top) elements, so
+// most of a step's 92 calls last a few microseconds and the launch, the
+// first load's latency and the finish weigh as much as the bytes.
 //
-// Design. The TPU re-viewed the batch as [B*H, W*C] to fill 128 lanes;
-// here each memory order is read as it lies, 16 bytes a thread where
-// the channel (NHWC) or spatial (NCHW) extent allows it:
-//   * NHWC (channels_last): the rows [M = N*H*W, C]. A block takes a
-//     range of rows; its threads are `tc` channel-group lanes times `R`
-//     row lanes, each owning V consecutive channels (V = 8 bf16 or 4
-//     fp32 in one vector load, else 1). The R row lanes are summed by a
-//     fixed shared-memory tree.
-//   * NCHW (contiguous): a block takes one channel and one range of its
-//     N*H*W elements (`L` long, a multiple of V), each thread V
-//     consecutive elements a step; warp shuffles and a fixed tree over
-//     the warps finish the block.
-// Both write fp32 partials [2, P, C]; a second launch sums each
-// channel's P partials in a fixed order. No float atomics: the same
-// inputs give the same bits on every run. Offsets are int64 (the 224^2
-// bs128 stem holds 1.03e8 elements; a test holds 4.3e9).
+// Design: one launch a call. The TPU re-viewed the batch as [B*H, W*C]
+// to fill 128 lanes; here each memory order is read as it lies, 16 bytes
+// a load where the channel (NHWC) or spatial (NCHW) extent allows it,
+// kUnroll independent loads in flight a thread:
+//   * NHWC (channels_last): the rows [M = N*H*W, C]. Grid (P, gy): CTA
+//     (p, y) takes rows [p*ceil(M/P), ...) of column y, tc channel
+//     groups of V channels (V = 8 bf16 or 4 fp32 in one 16-byte load,
+//     else 1; tc a power of two). Its threads are tc group lanes times
+//     R = 256 / tc row lanes; a row lane walks its rows R apart. The row
+//     lanes of one warp (tc < 32) are summed by shuffles, the rest
+//     (warps, or R row lanes when tc >= 32) in order through shared
+//     memory.
+//   * NCHW (contiguous): grid (P, C). CTA (p, c) takes one range of
+//     channel c's N*H*W elements (a multiple of V long); shuffles and
+//     the 8 warps in order finish the block.
+// Each CTA writes its fp32 partial row and counts itself in on an
+// arrival counter of its column (NHWC) or channel (NCHW) by one
+// acquire-release increment; the CTA that arrives last reads the P
+// partial rows from L2 and sums them in p order. The increment wraps the
+// counter back to 0 on that last arrival, so the next call on the stream
+// finds it zero: no memset, no second launch.
+// No float atomics: the same inputs and plan give the same bits on every
+// run. The counters belong to one stream (the wrapper keeps one set a
+// stream), since two calls in flight at once must not share them.
+// Offsets are int64 (the 224^2 bs128 stem holds 1.03e8 elements; a test
+// holds 4.3e9).
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -37,6 +49,10 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+// independent loads a thread issues before it adds them (ops/cuda/
+// channel_sums.py UNROLL)
+constexpr int kUnroll = 4;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -48,32 +64,28 @@ struct alignas(sizeof(T) * V) Vec {
   T v[V];
 };
 
-template <typename T, int V>
-__device__ __forceinline__ void load(const T* p, float (&out)[V]) {
-  Vec<T, V> r = *reinterpret_cast<const Vec<T, V>*>(p);
+// U loads of V elements of a (and of b unless SAME) at the offsets, all
+// issued before the first add; then added in offset order
+template <typename TA, typename TB, int V, bool SAME, int U>
+__device__ __forceinline__ void accumulate(const TA* __restrict__ a,
+                                           const TB* __restrict__ b,
+                                           const long long (&off)[U],
+                                           float (&sa)[V], float (&sab)[V]) {
+  Vec<TA, V> ra[U];
+  Vec<TB, V> rb[U];
 #pragma unroll
-  for (int i = 0; i < V; ++i) out[i] = to_f(r.v[i]);
-}
-
-template <typename TA, typename TB, int V, bool SAME>
-__device__ __forceinline__ void accumulate(const TA* a, const TB* b,
-                                           long long off, float (&sa)[V],
-                                           float (&sab)[V]) {
-  float av[V];
-  load<TA, V>(a + off, av);
-  if (SAME) {
+  for (int u = 0; u < U; ++u) {
+    ra[u] = *reinterpret_cast<const Vec<TA, V>*>(a + off[u]);
+    if (!SAME) rb[u] = *reinterpret_cast<const Vec<TB, V>*>(b + off[u]);
+  }
 #pragma unroll
-    for (int i = 0; i < V; ++i) {
-      sa[i] += av[i];
-      sab[i] = fmaf(av[i], av[i], sab[i]);
-    }
-  } else {
-    float bv[V];
-    load<TB, V>(b + off, bv);
+  for (int u = 0; u < U; ++u) {
 #pragma unroll
     for (int i = 0; i < V; ++i) {
-      sa[i] += av[i];
-      sab[i] = fmaf(av[i], bv[i], sab[i]);
+      const float x = to_f(ra[u].v[i]);
+      const float y = SAME ? x : to_f(rb[u].v[i]);
+      sa[i] += x;
+      sab[i] = fmaf(x, y, sab[i]);
     }
   }
 }
@@ -84,15 +96,40 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// a, b: [M, C] rows. Grid (P, ceil(G / tc)), G = C / V channel groups;
-// block: tc lanes over groups x R lanes over rows (tc * R <= kThreads);
-// dynamic shared memory 2 * R * tc * V floats.
+// Thread 0 counts the CTA in on *count once every thread's partial
+// stores are done (the barrier), by an acquire-release increment at GPU
+// scope: its release publishes the CTA's stores, its acquire (and the
+// barrier after it) lets the last CTA read every other CTA's. True in the
+// CTA that arrived last of `arrivals`, where the counter wraps back to 0.
+__device__ __forceinline__ bool arrived_last(unsigned* count,
+                                             unsigned arrivals) {
+  __shared__ bool last;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned old;
+    asm volatile("atom.acq_rel.gpu.global.inc.u32 %0, [%1], %2;"
+                 : "=r"(old)
+                 : "l"(count), "r"(arrivals - 1)
+                 : "memory");
+    last = old == arrivals - 1;
+  }
+  __syncthreads();
+  return last;
+}
+
+// a, b: [M, C] rows. Grid (P, gy); block kThreads = tc group lanes x R
+// row lanes; part: [gy][P][K] fp32, K = 2 W, W = tc * V (even), entry
+// k = s * W + w of a row holding sum s (0: a, 1: a*b) of channel
+// y * W + w (0 past C); count: gy counters.
 template <typename TA, typename TB, int V, bool SAME>
-__global__ void sums_nhwc(const TA* __restrict__ a, const TB* __restrict__ b,
-                          float* __restrict__ part, long long M, int C,
-                          int tc, int R, long long rows_per_block) {
-  extern __shared__ float sh[];
-  const int G = C / V;
+__global__ void __launch_bounds__(kThreads)
+sums_nhwc(const TA* __restrict__ a, const TB* __restrict__ b,
+          float* __restrict__ part, unsigned* __restrict__ count,
+          float* __restrict__ out, long long M, int C, int tc,
+          long long rows_per_block) {
+  // the row lanes' sums, then the finish's float4 lanes (256 float4s)
+  __shared__ __align__(16) float red[2 * kThreads * (V < 2 ? 2 : V)];
+  const int G = C / V, R = kThreads / tc, W = tc * V, K = 2 * W;
   const int lane_c = threadIdx.x % tc, lane_r = threadIdx.x / tc;
   const int g = blockIdx.y * tc + lane_c;
   float sa[V], sab[V];
@@ -100,72 +137,145 @@ __global__ void sums_nhwc(const TA* __restrict__ a, const TB* __restrict__ b,
   for (int i = 0; i < V; ++i) sa[i] = sab[i] = 0.0f;
   const long long r0 = (long long)blockIdx.x * rows_per_block;
   const long long r1 = min(M, r0 + rows_per_block);
-  if (lane_r < R && g < G) {
-    for (long long r = r0 + lane_r; r < r1; r += R)
-      accumulate<TA, TB, V, SAME>(a, b, r * C + (long long)g * V, sa, sab);
+  if (g < G) {
+    const long long col = (long long)g * V;
+    long long r = r0 + lane_r;
+    for (; r + (kUnroll - 1) * (long long)R < r1; r += kUnroll * R) {
+      long long off[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) off[u] = (r + u * R) * C + col;
+      accumulate<TA, TB, V, SAME, kUnroll>(a, b, off, sa, sab);
+    }
+    for (; r < r1; r += R) {
+      const long long off[1] = {r * C + col};
+      accumulate<TA, TB, V, SAME, 1>(a, b, off, sa, sab);
+    }
   }
-  const int W = tc * V;
-  float* sha = sh;
-  float* shb = sh + R * W;
-  const int base = lane_r * W + lane_c * V;
-  if (lane_r < R) {
+  // the row lanes of a warp by shuffles (tc < 32: lanes l and l + tc hold
+  // one group), leaving one row lane a warp; red[s][lane][W]
+  int lanes = R, lane = lane_r;
+  if (tc < 32) {
 #pragma unroll
     for (int i = 0; i < V; ++i) {
-      sha[base + i] = sa[i];
-      shb[base + i] = sab[i];
+      for (int o = 16; o >= tc; o >>= 1) {
+        sa[i] += __shfl_down_sync(0xffffffffu, sa[i], o);
+        sab[i] += __shfl_down_sync(0xffffffffu, sab[i], o);
+      }
+    }
+    lanes = kWarps;
+    lane = threadIdx.x / 32;
+  }
+  if (tc >= 32 || threadIdx.x % 32 < tc) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      red[lane * W + lane_c * V + i] = sa[i];
+      red[(lanes + lane) * W + lane_c * V + i] = sab[i];
     }
   }
   __syncthreads();
-  int span = 1;
-  while (span < R) span <<= 1;
-  for (int s = span >> 1; s > 0; s >>= 1) {
-    if (lane_r < s && lane_r + s < R) {
-#pragma unroll
-      for (int i = 0; i < V; ++i) {
-        sha[base + i] += sha[base + s * W + i];
-        shb[base + i] += shb[base + s * W + i];
+  // the lanes left, in lane order: the CTA's partial row
+  float* row = part + ((long long)blockIdx.y * gridDim.x + blockIdx.x) * K;
+  for (int k = threadIdx.x; k < K; k += kThreads) {
+    const int s = k / W, w = k - s * W;
+    const float* src = red + s * lanes * W + w;
+    float t = 0.0f;
+    for (int l = 0; l < lanes; ++l) t += src[l * W];
+    row[k] = t;
+  }
+  if (!arrived_last(count + blockIdx.y, gridDim.x)) return;
+
+  // the last CTA of column y: the P rows' float4 column q summed in p
+  // order, by J = kThreads / Q lanes each taking every J-th row, the lanes
+  // then in order (Q = K / 4 float4s a row)
+  const int P = gridDim.x, Q = K / 4;
+  const float4* rows4 = reinterpret_cast<const float4*>(
+      part + (long long)blockIdx.y * P * K);
+  float4* red4 = reinterpret_cast<float4*>(red);
+  const int c0 = blockIdx.y * W;
+  for (int q0 = 0; q0 < Q; q0 += kThreads) {
+    const int J = Q - q0 >= kThreads ? 1 : kThreads / (Q - q0);
+    const int span = min(Q - q0, kThreads);
+    const int q = q0 + threadIdx.x % span, j = threadIdx.x / span;
+    float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+    for (int p = j; p < P; p += J) {
+      const float4 v = __ldcg(rows4 + (long long)p * Q + q);
+      t.x += v.x;
+      t.y += v.y;
+      t.z += v.z;
+      t.w += v.w;
+    }
+    if (J > 1) {
+      __syncthreads();
+      red4[j * span + (q - q0)] = t;
+      __syncthreads();
+      if (threadIdx.x >= span) continue;
+      t = red4[threadIdx.x];
+      for (int l = 1; l < J; ++l) {
+        const float4 v = red4[l * span + threadIdx.x];
+        t.x += v.x;
+        t.y += v.y;
+        t.z += v.z;
+        t.w += v.w;
       }
     }
-    __syncthreads();
-  }
-  if (lane_r == 0 && g < G) {
-    const long long P = gridDim.x;
+    const float tv[4] = {t.x, t.y, t.z, t.w};
 #pragma unroll
-    for (int i = 0; i < V; ++i) {
-      const int c = g * V + i;
-      part[(long long)blockIdx.x * C + c] = sha[lane_c * V + i];
-      part[(P + blockIdx.x) * C + c] = shb[lane_c * V + i];
+    for (int e = 0; e < 4; ++e) {
+      const int k = 4 * q + e;
+      const int s = k / W, c = c0 + k - s * W;
+      if (c < C) out[s * C + c] = tv[e];
     }
   }
 }
 
-// a, b: [N, C, HW]. Grid (P, C): block (p, c) sums channel c's elements
-// j in [p*L, min((p+1)*L, N*HW)), j = n*HW + hw, V at a time (HW and L
-// are multiples of V).
+// Channel c's element j in [p*L, min((p+1)*L, N*HW)), j = n*HW + hw, lies
+// at (n*C + c)*HW + hw; `Walk` steps a thread's j by `step` (HW and the
+// step are multiples of V) without a division a load.
+struct Walk {
+  long long n, hw;
+  __device__ __forceinline__ void advance(long long HW, long long dn,
+                                          long long dhw) {
+    n += dn;
+    hw += dhw;
+    if (hw >= HW) {
+      hw -= HW;
+      ++n;
+    }
+  }
+};
+
+// a, b: [N, C, HW]. Grid (P, C); part: [C][P][2] fp32; count: C counters.
 template <typename TA, typename TB, int V, bool SAME>
-__global__ void sums_nchw(const TA* __restrict__ a, const TB* __restrict__ b,
-                          float* __restrict__ part, long long HW,
-                          long long NHW, int C, long long L) {
+__global__ void __launch_bounds__(kThreads)
+sums_nchw(const TA* __restrict__ a, const TB* __restrict__ b,
+          float* __restrict__ part, unsigned* __restrict__ count,
+          float* __restrict__ out, long long HW, long long NHW, int C,
+          long long L) {
   const int c = blockIdx.y;
   const long long j0 = (long long)blockIdx.x * L;
   const long long j1 = min(NHW, j0 + L);
   float sa[V], sab[V];
 #pragma unroll
   for (int i = 0; i < V; ++i) sa[i] = sab[i] = 0.0f;
-  const long long step = (long long)blockDim.x * V;
+  const long long step = (long long)kThreads * V;
+  const long long dn = step / HW, dhw = step - dn * HW;
   long long j = j0 + (long long)threadIdx.x * V;
   if (j < j1) {
-    // (n, hw) of j, advanced by the step without a division per load
-    long long n = j / HW, hw = j - n * HW;
-    const long long dn = step / HW, dhw = step - dn * HW;
-    for (; j < j1; j += step) {
-      accumulate<TA, TB, V, SAME>(a, b, (n * C + c) * HW + hw, sa, sab);
-      n += dn;
-      hw += dhw;
-      if (hw >= HW) {
-        hw -= HW;
-        ++n;
+    Walk at{j / HW, j % HW};
+    for (; j + (kUnroll - 1) * step < j1; j += kUnroll * step) {
+      long long off[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        off[u] = (at.n * C + c) * HW + at.hw;
+        at.advance(HW, dn, dhw);
       }
+      accumulate<TA, TB, V, SAME, kUnroll>(a, b, off, sa, sab);
+    }
+    for (; j < j1; j += step) {
+      const long long off[1] = {(at.n * C + c) * HW + at.hw};
+      at.advance(HW, dn, dhw);
+      accumulate<TA, TB, V, SAME, 1>(a, b, off, sa, sab);
     }
   }
   float ta = 0.0f, tb = 0.0f;
@@ -174,7 +284,7 @@ __global__ void sums_nchw(const TA* __restrict__ a, const TB* __restrict__ b,
     ta += sa[i];
     tb += sab[i];
   }
-  __shared__ float sw[2][kThreads / 32];
+  __shared__ float sw[2][kWarps];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   ta = warp_sum(ta);
   tb = warp_sum(tb);
@@ -183,45 +293,49 @@ __global__ void sums_nchw(const TA* __restrict__ a, const TB* __restrict__ b,
     sw[1][warp] = tb;
   }
   __syncthreads();
-  if (warp == 0) {
-    const int nw = blockDim.x / 32;
-    ta = lane < nw ? sw[0][lane] : 0.0f;
-    tb = lane < nw ? sw[1][lane] : 0.0f;
-    ta = warp_sum(ta);
-    tb = warp_sum(tb);
-    if (lane == 0) {
-      const long long P = gridDim.x;
-      part[(long long)blockIdx.x * C + c] = ta;
-      part[(P + blockIdx.x) * C + c] = tb;
+  const long long P = gridDim.x;
+  float2* rows = reinterpret_cast<float2*>(part) + (long long)c * P;
+  if (threadIdx.x == 0) {
+    ta = tb = 0.0f;
+    for (int w = 0; w < kWarps; ++w) {
+      ta += sw[0][w];
+      tb += sw[1][w];
     }
+    rows[blockIdx.x] = make_float2(ta, tb);
   }
-}
+  if (!arrived_last(count + c, gridDim.x)) return;
 
-// part [2, P, C] -> out [2, C]. Grid (C, 2): block (c, k) sums the P
-// partials of out[k, c], thread t those at p = t, t + kThreads, ...,
-// then warp shuffles and a fixed tree over the warps.
-__global__ void sums_finish(const float* __restrict__ part,
-                            float* __restrict__ out, int P, int C) {
-  const int c = blockIdx.x, k = blockIdx.y;
-  const float* src = part + (long long)k * P * C + c;
-  float s = 0.0f;
-  for (int p = threadIdx.x; p < P; p += blockDim.x) s += src[(long long)p * C];
-  __shared__ float sw[kThreads / 32];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  s = warp_sum(s);
-  if (lane == 0) sw[warp] = s;
+  // the last CTA of channel c: thread t sums rows t, t + 256, ... in
+  // order, then shuffles and the warps in order
+  ta = tb = 0.0f;
+#pragma unroll 4
+  for (long long p = threadIdx.x; p < P; p += kThreads) {
+    const float2 v = __ldcg(rows + p);
+    ta += v.x;
+    tb += v.y;
+  }
+  ta = warp_sum(ta);
+  tb = warp_sum(tb);
+  if (lane == 0) {
+    sw[0][warp] = ta;
+    sw[1][warp] = tb;
+  }
   __syncthreads();
-  if (warp == 0) {
-    s = lane < (int)(blockDim.x / 32) ? sw[lane] : 0.0f;
-    s = warp_sum(s);
-    if (lane == 0) out[k * C + c] = s;
+  if (threadIdx.x == 0) {
+    ta = tb = 0.0f;
+    for (int w = 0; w < kWarps; ++w) {
+      ta += sw[0][w];
+      tb += sw[1][w];
+    }
+    out[c] = ta;
+    out[C + c] = tb;
   }
 }
 
 template <typename TA, typename TB, int V, bool SAME>
-void launch(const void* a, const void* b, float* part, int nhwc,
-            long long N, int C, long long HW, int P, int tc, int R,
-            cudaStream_t s) {
+void launch(const void* a, const void* b, float* part, unsigned* count,
+            float* out, int nhwc, long long N, int C, long long HW, int P,
+            int tc, cudaStream_t s) {
   const TA* pa = static_cast<const TA*>(a);
   const TB* pb = static_cast<const TB*>(b);
   if (nhwc) {
@@ -229,77 +343,80 @@ void launch(const void* a, const void* b, float* part, int nhwc,
     const long long rows = (M + P - 1) / P;
     const int G = C / V;
     dim3 grid((unsigned)P, (unsigned)((G + tc - 1) / tc));
-    const size_t smem = sizeof(float) * 2 * R * tc * V;
-    sums_nhwc<TA, TB, V, SAME><<<grid, kThreads, smem, s>>>(
-        pa, pb, part, M, C, tc, R, rows);
+    sums_nhwc<TA, TB, V, SAME><<<grid, kThreads, 0, s>>>(
+        pa, pb, part, count, out, M, C, tc, rows);
   } else {
     const long long NHW = N * HW;
     long long L = (NHW + P - 1) / P;
     L = (L + V - 1) / V * V;
     dim3 grid((unsigned)P, (unsigned)C);
-    sums_nchw<TA, TB, V, SAME><<<grid, kThreads, 0, s>>>(pa, pb, part, HW,
-                                                         NHW, C, L);
+    sums_nchw<TA, TB, V, SAME><<<grid, kThreads, 0, s>>>(
+        pa, pb, part, count, out, HW, NHW, C, L);
   }
 }
 
 template <typename TA, typename TB, int VEC>
-int dispatch_same(const void* a, const void* b, float* part, int same,
-                  int nhwc, long long N, int C, long long HW, int P, int tc,
-                  int R, cudaStream_t s) {
+int dispatch_same(const void* a, const void* b, float* part,
+                  unsigned* count, float* out, int same, int nhwc,
+                  long long N, int C, long long HW, int P, int tc,
+                  cudaStream_t s) {
   if (same)
-    launch<TA, TB, VEC, true>(a, b, part, nhwc, N, C, HW, P, tc, R, s);
+    launch<TA, TB, VEC, true>(a, b, part, count, out, nhwc, N, C, HW, P, tc,
+                              s);
   else
-    launch<TA, TB, VEC, false>(a, b, part, nhwc, N, C, HW, P, tc, R, s);
+    launch<TA, TB, VEC, false>(a, b, part, count, out, nhwc, N, C, HW, P,
+                               tc, s);
   return 0;
 }
 
 template <typename TA, typename TB, int WIDE>
-int dispatch_vec(const void* a, const void* b, float* part, int same,
-                 int nhwc, long long N, int C, long long HW, int vec, int P,
-                 int tc, int R, cudaStream_t s) {
+int dispatch_vec(const void* a, const void* b, float* part, unsigned* count,
+                 float* out, int same, int nhwc, long long N, int C,
+                 long long HW, int vec, int P, int tc, cudaStream_t s) {
   if (vec == WIDE)
-    return dispatch_same<TA, TB, WIDE>(a, b, part, same, nhwc, N, C, HW, P,
-                                       tc, R, s);
+    return dispatch_same<TA, TB, WIDE>(a, b, part, count, out, same, nhwc, N,
+                                       C, HW, P, tc, s);
   if (vec == 1)
-    return dispatch_same<TA, TB, 1>(a, b, part, same, nhwc, N, C, HW, P, tc,
-                                    R, s);
+    return dispatch_same<TA, TB, 1>(a, b, part, count, out, same, nhwc, N, C,
+                                    HW, P, tc, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // a, b: [N, C, H, W] fp32 (0) or bf16 (1) each, both NHWC (nhwc = 1) or
-// both NCHW; same = 1: b is a and is not read. part: [2, P, C] fp32
-// scratch; out: [2, C] fp32. vec: elements a thread loads at once (1, 4
-// when a type is fp32, 8 when both are bf16); tc, R: the NHWC block's
-// channel-group and row lanes (tc * R <= 256). The wrapper
-// (ops/cuda/channel_sums.py `plan`) picks vec, P, tc and R.
+// both NCHW; same = 1: b is a and is not read. out: [2, C] fp32. vec:
+// elements a thread loads at once (1, 4 when a type is fp32, 8 when both
+// are bf16); P: CTAs a column (NHWC) or channel (NCHW); tc: the NHWC
+// block's channel-group lanes (a power of two up to 256, tc * vec even).
+// part: fp32 scratch, NHWC [ceil(C / vec / tc)][P][2 tc vec] (16-byte
+// aligned), NCHW [C][P][2]; count: one zeroed unsigned counter a column
+// or channel, private to the stream, and zero again when the call ends.
+// The wrapper (ops/cuda/channel_sums.py `plan`) picks vec, P and tc.
 extern "C" int cartseg_channel_sums(const void* a, const void* b,
-                                    float* part, float* out, int a_bf16,
-                                    int b_bf16, int same, int nhwc,
-                                    long long N, int C, long long HW,
-                                    int vec, int P, int tc, int R,
+                                    float* part, unsigned* count, float* out,
+                                    int a_bf16, int b_bf16, int same,
+                                    int nhwc, long long N, int C,
+                                    long long HW, int vec, int P, int tc,
                                     void* stream) {
   if (N <= 0 || C <= 0 || HW <= 0) return (int)cudaGetLastError();
-  if (P <= 0 || tc <= 0 || R <= 0 || tc * R > kThreads)
+  if (P <= 0 || tc <= 0 || tc > kThreads || (tc & (tc - 1)) ||
+      (nhwc && tc * vec < 2))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   int rc;
   if (!a_bf16 && !b_bf16)
-    rc = dispatch_vec<float, float, 4>(a, b, part, same, nhwc, N, C, HW, vec,
-                                       P, tc, R, s);
+    rc = dispatch_vec<float, float, 4>(a, b, part, count, out, same, nhwc, N,
+                                       C, HW, vec, P, tc, s);
   else if (a_bf16 && b_bf16)
     rc = dispatch_vec<__nv_bfloat16, __nv_bfloat16, 8>(
-        a, b, part, same, nhwc, N, C, HW, vec, P, tc, R, s);
+        a, b, part, count, out, same, nhwc, N, C, HW, vec, P, tc, s);
   else if (a_bf16)
-    rc = dispatch_vec<__nv_bfloat16, float, 4>(a, b, part, 0, nhwc, N, C, HW,
-                                               vec, P, tc, R, s);
+    rc = dispatch_vec<__nv_bfloat16, float, 4>(a, b, part, count, out, 0,
+                                               nhwc, N, C, HW, vec, P, tc, s);
   else
-    rc = dispatch_vec<float, __nv_bfloat16, 4>(a, b, part, 0, nhwc, N, C, HW,
-                                               vec, P, tc, R, s);
+    rc = dispatch_vec<float, __nv_bfloat16, 4>(a, b, part, count, out, 0,
+                                               nhwc, N, C, HW, vec, P, tc, s);
   if (rc != 0) return rc;
-  rc = (int)cudaGetLastError();
-  if (rc != 0) return rc;
-  sums_finish<<<dim3((unsigned)C, 2), kThreads, 0, s>>>(part, out, P, C);
   return (int)cudaGetLastError();
 }

@@ -64,60 +64,69 @@ def _check(x: torch.Tensor, labels: torch.Tensor, what: str):
         raise ValueError(f"{what}: logits must be contiguous")
 
 
-def lsr_fwd(x: torch.Tensor, labels: torch.Tensor, lb_smooth: float,
-            ignore_index: int) -> torch.Tensor:
-    """Per-row LSR CE [N]. CUDA: csrc/lsr.cu `lsr_fwd`; CPU:
-    `lsr_fwd_plain`."""
-    if x.device.type == "cpu" and labels.device.type == "cpu":
-        return lsr_fwd_plain(x, labels, lb_smooth, ignore_index)
-    _check(x, labels, "lsr_fwd")
-    n, C = x.shape
-    lab = labels.to(torch.int32).contiguous()
-    out = torch.empty((n,), dtype=torch.float32, device=x.device)
-    lb_pos, lb_neg = _smoothing(C, lb_smooth)
-    lib = B.load_library()
-    with torch.cuda.device(x.device):
-        rc = lib.cartseg_lsr_fwd(x.data_ptr(), lab.data_ptr(),
-                                 out.data_ptr(), n, C, lb_pos, lb_neg,
-                                 int(ignore_index), B.stream_of(x))
-    B.check(rc, "lsr_fwd")
-    B.LAUNCHES["lsr_fwd"] += 1
-    return out
-
-
-# the backward's vector route: C a template parameter of csrc/lsr.cu
+# the vector routes: C a template parameter of csrc/lsr.cu
 VEC_CLASSES = (2, 4, 8, 16)
 _LAB64 = {torch.int32: 0, torch.int64: 1}
 
 
-def bwd_route(x: torch.Tensor) -> str:
-    """"vector" where csrc/lsr.cu's `lsr_bwd_vec` takes [n, C] logits (C in
-    VEC_CLASSES, 16-byte aligned rows, an even n at C = 2), else
-    "general"."""
+def route(x: torch.Tensor) -> str:
+    """"vector" where csrc/lsr.cu's `lsr_fwd_vec` and `lsr_bwd_vec` take
+    [n, C] logits (C in VEC_CLASSES, 16-byte aligned rows, an even n at
+    C = 2), else "general"."""
     n, C = x.shape
     ok = (C in VEC_CLASSES and B.aligned16(x) == 1
           and (C != 2 or n % 2 == 0))
     return "vector" if ok else "general"
 
 
+def _labels(labels: torch.Tensor) -> torch.Tensor:
+    """The labels as the kernels read them: int32 or int64 as they are,
+    any other integer type as int32."""
+    return (labels if labels.dtype in _LAB64
+            else labels.to(torch.int32)).contiguous()
+
+
+def lsr_fwd(x: torch.Tensor, labels: torch.Tensor, lb_smooth: float,
+            ignore_index: int) -> torch.Tensor:
+    """Per-row LSR CE [N]. CUDA: csrc/lsr.cu `lsr_fwd_vec` or `lsr_fwd`
+    (`route`), reading int32 or int64 labels as they are; CPU:
+    `lsr_fwd_plain`."""
+    if x.device.type == "cpu" and labels.device.type == "cpu":
+        return lsr_fwd_plain(x, labels, lb_smooth, ignore_index)
+    _check(x, labels, "lsr_fwd")
+    n, C = x.shape
+    lab = _labels(labels)
+    out = torch.empty((n,), dtype=torch.float32, device=x.device)
+    lb_pos, lb_neg = _smoothing(C, lb_smooth)
+    vec = int(route(x) == "vector")
+    lib = B.load_library()
+    with torch.cuda.device(x.device):
+        rc = lib.cartseg_lsr_fwd(x.data_ptr(), lab.data_ptr(),
+                                 out.data_ptr(), n, C, lb_pos, lb_neg,
+                                 int(ignore_index), _LAB64[lab.dtype], vec,
+                                 B.stream_of(x))
+    B.check(rc, "lsr_fwd")
+    B.LAUNCHES["lsr_fwd"] += 1
+    return out
+
+
 def lsr_bwd(x: torch.Tensor, labels: torch.Tensor, g: torch.Tensor,
             lb_smooth: float, ignore_index: int) -> torch.Tensor:
     """d(loss)/d(x) [N,C] for upstream g [N]. CUDA: csrc/lsr.cu
-    `lsr_bwd_vec` or `lsr_bwd` (`bwd_route`), reading int32 or int64
+    `lsr_bwd_vec` or `lsr_bwd` (`route`), reading int32 or int64
     labels as they are; CPU: `lsr_bwd_plain`."""
     if x.device.type == "cpu" and labels.device.type == "cpu":
         return lsr_bwd_plain(x, labels, g, lb_smooth, ignore_index)
     _check(x, labels, "lsr_bwd")
     n, C = x.shape
-    lab = (labels if labels.dtype in _LAB64
-           else labels.to(torch.int32)).contiguous()
+    lab = _labels(labels)
     gf = g.to(torch.float32).contiguous()
     if gf.shape != (n,) or not gf.is_cuda:
         raise ValueError(f"lsr_bwd: g must be [N] on the card, got "
                          f"{tuple(gf.shape)} on {gf.device}")
     grad = torch.empty((n, C), dtype=torch.float32, device=x.device)
     lb_pos, lb_neg = _smoothing(C, lb_smooth)
-    vec = int(bwd_route(x) == "vector")
+    vec = int(route(x) == "vector")
     lib = B.load_library()
     with torch.cuda.device(x.device):
         rc = lib.cartseg_lsr_bwd(x.data_ptr(), lab.data_ptr(), gf.data_ptr(),

@@ -27,10 +27,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
      for bit (torch.equal after synchronize); the LSR CE forward and
      backward on
      [6,512,512,8] logits with labels 0..7 and every 7th row ignored,
-     loss atol 1e-5 and gradient atol 2e-6 at unit g, and the backward
-     on both its routes (float4 rows; the logits 4 bytes past a 16-byte
-     boundary, one thread a row) with int64 and int32 labels, atol 2e-6
-     at unit g and 1e-5 at a random g; the decomposed
+     loss atol 1e-5 and gradient atol 2e-6 at unit g, and the forward
+     and backward on both their routes (float4 rows; the logits 4 bytes
+     past a 16-byte boundary, one thread a row) with int64 and int32
+     labels, loss atol 1e-5, gradient atol 2e-6 at unit g and 1e-5 at a
+     random g; the decomposed
      rel-pos flash attention at the ViT-B global block [12,4096,64]
      (max abs err within 1e-5 of max |plain| in fp32, as split-TF32
      products on the tensor cores, 1e-2 in bf16 on the tensor cores, the
@@ -161,14 +162,18 @@ Phases, in order; any failure raises and the exit code is non-zero:
      at most 3); the BCE+Dice step
      in both BN lanes at 512^2 bs6 and at bench.py's train half (224^2
      bs128) with the BN layers' share and the busy share; the LSR
-     backward at [1572864,8] in device time (L2 flushed) with int64 and
-     int32 labels, one CUDA kernel a call (lsr_bwd_vec) and its bound,
-     beside its CUDA-events time; and each
+     forward and backward at [1572864,8] in device time (L2 flushed) with
+     int64 and int32 labels, one CUDA kernel a call (lsr_fwd_vec,
+     lsr_bwd_vec) and their bounds, beside their CUDA-events times and
+     F.cross_entropy with the smoothed one-hot as probability targets,
+     forward and autograd backward; and each
      kernel against its plain version and,
      where one PyTorch call computes the same function, that call, at
      the path's shapes, beside its bound (channel_sums: per launch at
-     the stem, a layer3 BN and the decoder top, and over one step's 92
-     calls, against torch.batch_norm_stats and
+     the stem, a layer3 BN and the decoder top with the L2 flushed and
+     one CUDA kernel a call (sums_nhwc), and over one step's 92 calls
+     back to back, 92 kernels and no memset in a CUDA graph of them,
+     against torch.batch_norm_stats and
      torch.batch_norm_backward_reduce); the loss zoo's kernels at the
      path shapes in device time (profiler, the L2 flushed before each
      call) against their plain versions,
@@ -531,6 +536,16 @@ def sums_bound(a: torch.Tensor, b: torch.Tensor, same: bool) -> tuple:
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
+def sums_plan(a: torch.Tensor, b: torch.Tensor):
+    """The launch plan channel_sums takes for (a, b) on this card
+    (ops/cuda/channel_sums.py `plan`)."""
+    from cartseg_tpu_torch.ops.cuda.channel_sums import memory_order, plan
+
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    return plan(a.shape, memory_order(a) == "nhwc", (a.dtype, b.dtype),
+                (a.data_ptr(), b.data_ptr()), sms)
+
+
 def sm_clock_hz() -> float:
     """The card's maximum SM clock, as nvidia-smi reports it."""
     out = subprocess.run(
@@ -838,15 +853,25 @@ def phase_compare(frames: np.ndarray, dev) -> dict:
                                  f"{LSR_TOL[name]}")
         log(f"  {name} [6,512,512,8]: max abs err {err[name]:.3e} "
             f"(tolerance {LSR_TOL[name]})")
-    # lsr_bwd on both routes (the logits as they are: float4 rows; a copy
-    # 4 bytes past a 16-byte boundary: one thread a row) and both label
-    # types, at unit and random g
-    from cartseg_tpu_torch.ops.cuda.lsr import bwd_route
+    # lsr_fwd and lsr_bwd on both routes (the logits as they are: float4
+    # rows; a copy 4 bytes past a 16-byte boundary: one thread a row) and
+    # both label types, the backward at unit and random g
+    from cartseg_tpu_torch.ops.cuda.lsr import route
 
     flat = torch.empty(x.numel() + 1, device=dev)
     flat[1:] = x.reshape(-1)
     for xs in (x, flat[1:].view(x.shape)):
         for lb in (lab, lab.to(torch.int32)):
+            got = lsr_fwd(xs, lb, 0.2, 255)
+            torch.cuda.synchronize()
+            e = float((got - lsr_fwd_plain(xs, lb, 0.2, 255)).abs().max())
+            if not e <= LSR_TOL["lsr_fwd"]:
+                raise AssertionError(
+                    f"lsr_fwd {route(xs)} route, {lb.dtype}: max abs err "
+                    f"{e} above {LSR_TOL['lsr_fwd']}")
+            log(f"  lsr_fwd [6,512,512,8] {route(xs)} route, {lb.dtype} "
+                f"labels: max abs err {e:.3e} (tolerance "
+                f"{LSR_TOL['lsr_fwd']})")
             for gname, gu, tol in (("unit g", ones, LSR_TOL["lsr_bwd"]),
                                    ("random g", up, LSR_BWD_TOL_G)):
                 got = lsr_bwd(xs, lb, gu, 0.2, 255)
@@ -855,9 +880,9 @@ def phase_compare(frames: np.ndarray, dev) -> dict:
                           .abs().max())
                 if not e <= tol:
                     raise AssertionError(
-                        f"lsr_bwd {bwd_route(xs)} route, {lb.dtype}, "
+                        f"lsr_bwd {route(xs)} route, {lb.dtype}, "
                         f"{gname}: max abs err {e} above {tol}")
-                log(f"  lsr_bwd [6,512,512,8] {bwd_route(xs)} route, "
+                log(f"  lsr_bwd [6,512,512,8] {route(xs)} route, "
                     f"{lb.dtype} labels, {gname}: max abs err {e:.3e} "
                     f"(tolerance {tol})")
     return err
@@ -1411,21 +1436,32 @@ def phase_train_timing(dev, card: str, hist) -> dict:
     bounds = {"edt": edt_bound(seeds),
               "lsr_fwd": bytes_bound(nbytes(x, lab, outs["lsr_fwd"])),
               "lsr_bwd": bytes_bound(nbytes(x, lab, g, outs["lsr_bwd"]))}
-    # LSR forward == cross-entropy against the smoothed one-hot as
-    # probability targets (all zero on ignored rows); built untimed
+    # the library: cross-entropy against the smoothed one-hot as
+    # probability targets q (all zero on ignored rows; built untimed): its
+    # forward is the LSR loss and its autograd backward, g (softmax sum q -
+    # q) with sum q = (C - 1) lb_neg + lb_pos, the LSR gradient
     C = x.shape[1]
     tgt = torch.full_like(x, 0.2 / C)
     keep = lab != 255
     tgt[keep, lab[keep]] = 0.8
     tgt[~keep] = 0.0
     ce = torch.nn.functional.cross_entropy(x, tgt, reduction="none")
-    lib_ms = cuda_ms(lambda: torch.nn.functional.cross_entropy(
-        x, tgt, reduction="none"), 20)
-    library = {"edt": None, "lsr_fwd": lib_ms, "lsr_bwd": None}
-    log(f"  library: F.cross_entropy(probability targets) {lib_ms:.4f} ms "
-        f"(max abs diff to the kernel "
-        f"{float((ce - outs['lsr_fwd']).abs().max()):.2e}); edt, lsr_bwd: "
-        f"no single PyTorch call [{card}]")
+    xr = x.detach().clone().requires_grad_(True)
+    ce_r = torch.nn.functional.cross_entropy(xr, tgt, reduction="none")
+
+    def lib_bwd():
+        return torch.autograd.grad(ce_r, xr, g, retain_graph=True)[0]
+
+    lib_fwd_ms = device_ms(lambda: torch.nn.functional.cross_entropy(
+        x, tgt, reduction="none"), 20, cold=True)
+    lib_bwd_ms = device_ms(lib_bwd, 20, cold=True)
+    library = {"edt": None, "lsr_fwd": lib_fwd_ms, "lsr_bwd": lib_bwd_ms}
+    log(f"  library, device time (L2 flushed): F.cross_entropy(probability "
+        f"targets) {lib_fwd_ms:.5f} ms (max abs diff to the kernel "
+        f"{float((ce - outs['lsr_fwd']).abs().max()):.2e}); its autograd "
+        f"backward {lib_bwd_ms:.5f} ms (max abs diff to lsr_bwd "
+        f"{float((lib_bwd() - outs['lsr_bwd']).abs().max()):.2e}); edt: no "
+        f"PyTorch call [{card}]")
     mix_ms = edt_bound(seeds, EDT_KERNEL_OPS)[0]
     log(f"  edt: bytes bound {bytes_bound(nbytes(seeds, outs['edt']))[0]:.5f}"
         f" ms; operations bound ({EDT_OPS} operations a candidate, "
@@ -1437,33 +1473,40 @@ def phase_train_timing(dev, card: str, hist) -> dict:
     for name, (b, by) in bounds.items():
         log(f"  {name}: bound {b:.5f} ms ({by}), kernel at "
             f"{b / times[name][0]:.3f} of it")
-    # lsr_bwd by device time (profiler, L2 flushed) beside the CUDA-events
-    # reading above, with the path's int64 labels and with int32 ones; one
-    # kernel a call, the vector route, no label conversion
-    from cartseg_tpu_torch.ops.cuda.lsr import bwd_route
+    # lsr_fwd and lsr_bwd by device time (profiler, L2 flushed) beside the
+    # CUDA-events readings above, with the path's int64 labels and with
+    # int32 ones; one kernel a call, the vector route, no label conversion
+    from cartseg_tpu_torch.ops.cuda.lsr import route
 
-    dev_ms = {}
-    for lb in (lab, lab.to(torch.int32)):
-        def call(lb=lb):
-            return lsr_bwd(x, lb, g, 0.2, 255)
+    calls = {"lsr_fwd": lambda lb: lsr_fwd(x, lb, 0.2, 255),
+             "lsr_bwd": lambda lb: lsr_bwd(x, lb, g, 0.2, 255)}
+    plains = {"lsr_fwd": lambda: lsr_fwd_plain(x, lab, 0.2, 255),
+              "lsr_bwd": lambda: lsr_bwd_plain(x, lab, g, 0.2, 255)}
+    for name, fn in calls.items():
+        dev_ms = {}
+        for lb in (lab, lab.to(torch.int32)):
+            def call(lb=lb, fn=fn):
+                return fn(lb)
 
-        k1 = device_ms(call, 20, "lsr_bwd", cold=True)
-        k2 = device_ms(call, 20, "lsr_bwd", cold=True)
-        names, _ = kernels_a_call(call, "lsr_bwd")
-        if len(names) != 1 or "lsr_bwd_vec" not in names[0]:
-            raise AssertionError(f"lsr_bwd {lb.dtype}: ran {names}; want "
-                                 "the one lsr_bwd_vec kernel")
-        b, _ = bytes_bound(nbytes(x, lb, g, outs["lsr_bwd"]))
-        dev_ms[lb.dtype] = (k1 + k2) / 2
-        log(f"  lsr_bwd [{x.shape[0]},{x.shape[1]}] {lb.dtype} labels "
-            f"({bwd_route(x)} route): device time (profiler, L2 flushed) "
-            f"{k1:.5f}/{k2:.5f} ms; 1 CUDA kernel a call ({names[0]}); "
-            f"bound {b:.5f} ms (bytes), kernel at {2 * b / (k1 + k2):.3f} "
-            f"of it [{card}]")
-    p1 = device_ms(lambda: lsr_bwd_plain(x, lab, g, 0.2, 255), 5, cold=True)
-    log(f"  lsr_bwd plain version, device time (L2 flushed) {p1:.5f} ms; "
-        f"CUDA events kernel {times['lsr_bwd'][0]:.4f} ms [{card}]")
-    times["lsr_bwd"] = (dev_ms[torch.int64], p1)
+            k1 = device_ms(call, 20, name, cold=True)
+            k2 = device_ms(call, 20, name, cold=True)
+            names, _ = kernels_a_call(call, name)
+            if len(names) != 1 or f"{name}_vec" not in names[0]:
+                raise AssertionError(f"{name} {lb.dtype}: ran {names}; want "
+                                     f"the one {name}_vec kernel")
+            ins = (x, lb) if name == "lsr_fwd" else (x, lb, g)
+            b, _ = bytes_bound(nbytes(*ins, outs[name]))
+            dev_ms[lb.dtype] = (k1 + k2) / 2
+            log(f"  {name} [{x.shape[0]},{x.shape[1]}] {lb.dtype} labels "
+                f"({route(x)} route): device time (profiler, L2 flushed) "
+                f"{k1:.5f}/{k2:.5f} ms; 1 CUDA kernel a call ({names[0]}); "
+                f"bound {b:.5f} ms (bytes), kernel at {2 * b / (k1 + k2):.3f}"
+                f" of it [{card}]")
+        p1 = device_ms(plains[name], 5, cold=True)
+        log(f"  {name} plain version, device time (L2 flushed) {p1:.5f} "
+            f"ms; CUDA events kernel {times[name][0]:.4f} ms; library "
+            f"{library[name]:.5f} ms [{card}]")
+        times[name] = (dev_ms[torch.int64], p1)
     build.reset_launch_counts()
     return {"step_ms": step_ms, "kernels": times, "bounds": bounds,
             "library": library}
@@ -1649,9 +1692,12 @@ def phase_bce_timing(dev, card: str) -> tuple:
     (their forward + backward alone on the inputs the step gives them);
     and channel_sums against its plain version, the ATen BN reductions
     and its bound, per launch at the stem, a layer3 BN and the decoder
-    top and summed over one 512^2 step's 92 calls, in device time (the
-    profiler's kernel durations) and in wall time (CUDA events). Returns
-    the decoder top's (dy, x) row: (ms, plain ms, library ms, bound ms,
+    top (device time with the L2 flushed before each call) and summed
+    over one 512^2 step's 92 calls (back to back, as the step's BN
+    inputs follow each other), in device time (the profiler's kernel
+    durations) and in wall time (CUDA events); one CUDA kernel a call and
+    no memset, from CUDA graphs of one call and of the 92. Returns the
+    decoder top's (dy, x) row: (ms, plain ms, library ms, bound ms,
     bound_by)."""
     from cartseg_tpu_torch.ops.channel_sums import (channel_sums,
                                                     channel_sums_plain)
@@ -1752,13 +1798,23 @@ def phase_bce_timing(dev, card: str) -> tuple:
     kd, pd, ld = (device_ms(kern, 3, "sums_"), device_ms(plain, 3),
                   device_ms(lib, 3))
     bound = sum(sums_bound(*c[0])[0] for c in calls)
+    # one CUDA kernel a call and no memset: a CUDA graph of the 92 calls
+    nodes = graph_nodes(kern)
+    kinds = {k: sum(1 for kind, _ in nodes if kind == k)
+             for k in {kind for kind, _ in nodes}}
+    if kinds != {"KERNEL": len(calls)} or not all(
+            "sums_nhwc" in n for _, n in nodes):
+        raise AssertionError(f"channel_sums, {len(calls)} calls: the graph "
+                             f"holds {kinds}; want {len(calls)} sums_nhwc "
+                             f"kernels and nothing else")
     log(f"  channel_sums, the {len(calls)} calls of one step, wall (CUDA "
         f"events, the host's enqueueing included): kernel {k1:.4f}/{k2:.4f} "
         f"ms, plain {p1:.4f}/{p2:.4f} ms, batch_norm_stats + "
         f"batch_norm_backward_reduce {l1:.4f} ms; device time (profiler): "
         f"kernel {kd:.4f} ms, plain {pd:.4f} ms, ATen {ld:.4f} ms; bound "
         f"{bound:.5f} ms (bytes), kernel's device time at "
-        f"{bound / kd:.3f} of it [{card}]")
+        f"{bound / kd:.3f} of it; {len(calls)} CUDA kernels in a graph of "
+        f"the {len(calls)} calls, no memset [{card}]")
 
     # per launch at three of the path's inputs: the stem, a layer3 BN and
     # the decoder top, forward (x, x) and backward (dy, x)
@@ -1779,15 +1835,24 @@ def phase_bce_timing(dev, card: str) -> tuple:
 
             ka, la, kb = cuda_ms(kern1, 50), cuda_ms(c[1], 50), cuda_ms(
                 kern1, 50)
-            kd1, kd2 = device_ms(kern1, 20, "sums_"), device_ms(
-                kern1, 20, "sums_")
-            pd1, ld1 = device_ms(plain1, 5), device_ms(c[1], 20)
+            kd1, kd2 = (device_ms(kern1, 20, "sums_", cold=True),
+                        device_ms(kern1, 20, "sums_", cold=True))
+            kw = device_ms(kern1, 20, "sums_")
+            pd1, ld1 = (device_ms(plain1, 5, cold=True),
+                        device_ms(c[1], 20, cold=True))
+            names, _ = kernels_a_call(kern1, "channel_sums")
+            if len(names) != 1 or "sums_nhwc" not in names[0]:
+                raise AssertionError(f"channel_sums {name} {what}: ran "
+                                     f"{names}; want the one sums_nhwc "
+                                     "kernel")
             bnd, by = sums_bound(a, b, same)
             per[(name, what)] = ((kd1 + kd2) / 2, pd1, ld1, bnd, by)
             libname = ("batch_norm_stats" if same
                        else "batch_norm_backward_reduce")
-            log(f"  channel_sums {name} {tuple(a.shape)} {what}: device time "
-                f"(profiler) kernel {kd1:.5f}/{kd2:.5f} ms, plain "
+            log(f"  channel_sums {name} {tuple(a.shape)} {what} (plan "
+                f"{tuple(sums_plan(a, b))}, 1 CUDA kernel a call): device "
+                f"time (profiler, L2 flushed) kernel {kd1:.5f}/{kd2:.5f} ms "
+                f"(back to back {kw:.5f} ms), plain "
                 f"{pd1:.5f} ms, {libname} {ld1:.5f} ms; wall per call (CUDA "
                 f"events, the host's enqueueing included) kernel "
                 f"{ka:.5f}/{kb:.5f} ms, {libname} {la:.5f} ms; bound "

@@ -308,14 +308,13 @@ def test_lsr_bwd_routes_within_tolerance_of_plain(cuda_device, C, offset,
     route (C = 5, and C = 8 on rows that start 4 bytes past a 16-byte
     boundary), with int32 and int64 labels read as they are; ignored rows
     zero."""
-    from cartseg_tpu_torch.ops.cuda.lsr import bwd_route
+    from cartseg_tpu_torch.ops.cuda.lsr import route
 
     g = torch.Generator(device="cpu").manual_seed(C + offset)
     n = 4098
     flat = torch.randn((n * C + offset,), generator=g) * 3
     x = flat.to(cuda_device)[offset:].view(n, C)
-    assert bwd_route(x) == ("vector" if C != 5 and not offset
-                            else "general")
+    assert route(x) == ("vector" if C != 5 and not offset else "general")
     lab = torch.randint(0, C, (n,), generator=g)
     lab[::7] = 255
     lab = lab.to(label_dtype).to(cuda_device)
@@ -327,6 +326,57 @@ def test_lsr_bwd_routes_within_tolerance_of_plain(cuda_device, C, offset,
     b = lsr_bwd(x, lab, up, 0.2, 255)
     assert (b - lsr_bwd_plain(x, lab, up, 0.2, 255)).abs().max() <= 1e-5
     assert torch.all(b[::7] == 0)
+
+
+@pytest.mark.parametrize("label_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("C,offset,n", [(8, 0, 4098), (2, 0, 4098),
+                                        (4, 0, 4099), (16, 0, 4099),
+                                        (5, 0, 4098), (8, 1, 4098),
+                                        (2, 0, 4099)])
+def test_lsr_fwd_routes_within_tolerance_of_plain(cuda_device, C, offset, n,
+                                                  label_dtype):
+    """The forward's vector route (C = 2, 4, 8, 16 on aligned rows, n even
+    at C = 2) and its general route (C = 5, rows 4 bytes past a 16-byte
+    boundary, odd n at C = 2), int32 and int64 labels read as they are,
+    ignored rows 0 and a label past C: within 1e-5 of the plain version,
+    one CUDA kernel a call (`lsr_fwd_vec` or `lsr_fwd`), no conversion."""
+    from cartseg_tpu_torch.ops.cuda.lsr import route
+
+    g = torch.Generator(device="cpu").manual_seed(C + offset + n)
+    flat = torch.randn((n * C + offset,), generator=g) * 3
+    x = flat.to(cuda_device)[offset:].view(n, C)
+    vec = C in (2, 4, 8, 16) and not offset and (C != 2 or n % 2 == 0)
+    assert route(x) == ("vector" if vec else "general")
+    lab = torch.randint(0, C, (n,), generator=g)
+    lab[::7] = 255
+    lab[3] = C + 2
+    lab = lab.to(label_dtype).to(cuda_device)
+    f = lsr_fwd(x, lab, 0.2, 255)
+    torch.cuda.synchronize()
+    assert (f - lsr_fwd_plain(x, lab, 0.2, 255)).abs().max() <= 1e-5
+    assert torch.all(f[::7] == 0)
+    per_call = _kernels_a_call(lambda: lsr_fwd(x, lab, 0.2, 255))
+    assert sum(per_call.values()) == 1, per_call
+    want = "lsr_fwd_vec" if vec else "lsr_fwd"
+    assert all(want in k for k in per_call), per_call
+
+
+def test_lsr_fwd_int64_labels_launch_one_vector_kernel(cuda_device):
+    """An int64-label forward at the ABL path's [6*512*512, 8] is the one
+    `lsr_fwd_vec` kernel (the first version converted the labels first:
+    two kernels)."""
+    g = torch.Generator(device="cpu").manual_seed(0)
+    n = 6 * 512 * 512
+    x = (torch.randn((n, 8), generator=g) * 3).to(cuda_device)
+    lab = torch.randint(0, 8, (n,), generator=g)
+    lab[::7] = 255
+    lab = lab.to(cuda_device)
+    assert lab.dtype == torch.int64
+    per_call = _kernels_a_call(lambda: lsr_fwd(x, lab, 0.2, 255))
+    assert sum(per_call.values()) == 1, per_call
+    assert all("lsr_fwd_vec" in n for n in per_call), per_call
+    f = lsr_fwd(x, lab, 0.2, 255)
+    assert (f - lsr_fwd_plain(x, lab, 0.2, 255)).abs().max() <= 1e-5
 
 
 def test_lsr_bwd_int64_labels_launch_no_conversion(cuda_device):
@@ -779,8 +829,8 @@ def _sums_inputs(shape, dtypes, layout, dev, seed=0):
             for t, d in zip((a, b), dtypes)]
 
 
-def _check_sums(a, b):
-    got = channel_sums(a, b)
+def _check_sums(a, b, call=channel_sums):
+    got = call(a, b)
     torch.cuda.synchronize()
     want = channel_sums_plain(a, b)
     af, bf = a.float(), b.float()
@@ -789,18 +839,20 @@ def _check_sums(a, b):
     for g, w, t in zip(got, want, tol):
         assert g.dtype == torch.float32 and g.shape == (a.shape[1],)
         assert bool(((g - w).abs() <= t).all()), float((g - w).abs().max())
-    again = channel_sums(a, b)
+    again = call(a, b)
     for g, h in zip(got, again):
         assert torch.equal(g, h)
     return got
 
 
+SUMS_SHAPES = [(2, 3, 17, 9), (6, 16, 64, 48), (3, 64, 31, 33),
+               (4, 512, 8, 8), (1, 16, 1, 1)]
+
+
 @pytest.mark.parametrize("same", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("layout", ["nhwc", "nchw"])
-@pytest.mark.parametrize("shape", [(2, 3, 17, 9), (6, 16, 64, 48),
-                                   (3, 64, 31, 33), (4, 512, 8, 8),
-                                   (1, 16, 1, 1)])
+@pytest.mark.parametrize("shape", SUMS_SHAPES)
 def test_channel_sums_kernel_within_tolerance_of_plain(cuda_device, shape,
                                                        layout, dtype, same):
     a, b = _sums_inputs(shape, (dtype, dtype), layout, cuda_device)
@@ -808,6 +860,86 @@ def test_channel_sums_kernel_within_tolerance_of_plain(cuda_device, shape,
     _check_sums(a, a if same else b)
     assert build.LAUNCHES["channel_sums"] == 2
     build.reset_launch_counts()
+
+
+def _sums_cases(dev):
+    """Every input kind the kernel takes: the shapes of
+    test_channel_sums_kernel_within_tolerance_of_plain in both orders and
+    types, (x, x) and (dy, x); mixed types; a misaligned view."""
+    for shape in SUMS_SHAPES:
+        for layout in ("nhwc", "nchw"):
+            for dtype in (torch.float32, torch.bfloat16):
+                a, b = _sums_inputs(shape, (dtype, dtype), layout, dev)
+                yield (shape, layout, dtype, "same"), a, a
+                yield (shape, layout, dtype, "dy"), b, a
+    for layout in ("nhwc", "nchw"):
+        for dtypes in ((torch.bfloat16, torch.float32),
+                       (torch.float32, torch.bfloat16)):
+            yield ((layout, dtypes),
+                   *_sums_inputs((3, 24, 20, 12), dtypes, layout, dev))
+    big = torch.randn(1 + 2 * 16 * 8 * 8, device=dev)
+    yield "misaligned nchw", big[1:].view(2, 16, 8, 8), big[1:].view(
+        2, 16, 8, 8)
+    nhwc = big[1:].view(2, 8, 8, 16).permute(0, 3, 1, 2)
+    yield "misaligned nhwc", nhwc, nhwc
+
+
+def test_channel_sums_call_is_one_kernel_no_memset_counters_zero(
+        cuda_device):
+    """Each input kind: one CUDA kernel a call (sums_nhwc or sums_nchw; the
+    first version ran two) and no memset, by a CUDA graph of the call; the
+    stream's arrival counters back at zero after every call."""
+    from cartseg_tpu_torch.ops.cuda import channel_sums as cs
+
+    for tag, a, b in _sums_cases(cuda_device):
+        channel_sums(a, b)
+        nodes = graph_nodes(lambda: channel_sums(a, b))
+        kinds = Counter(kind for kind, _ in nodes)
+        assert kinds == {"KERNEL": 1}, (tag, nodes)
+        assert "sums_n" in nodes[0][1], (tag, nodes)
+        torch.cuda.synchronize()
+        buf = cs._COUNTERS[torch.device(cuda_device).index or 0]
+        assert int(buf.count_nonzero()) == 0, tag
+
+
+def test_channel_sums_same_bits_after_graph_capture(cuda_device):
+    """A call captured into a CUDA graph and replayed twice gives the bits
+    of the same call run eagerly, at the decoder top's bf16 NHWC inputs
+    and at layer4's (the capture stream takes its own counters)."""
+    for shape in ((6, 16, 512, 512), (6, 512, 16, 16)):
+        x, dy = _sums_inputs(shape, (torch.bfloat16,) * 2, "nhwc",
+                             cuda_device)
+        for a, b in ((x, x), (dy, x)):
+            want = channel_sums(a, b)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                channel_sums(a, b)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                got = channel_sums(a, b)
+            for _ in range(2):
+                graph.replay()
+                torch.cuda.synchronize()
+                assert all(torch.equal(g, w) for g, w in zip(got, want))
+            del graph
+
+
+def test_channel_sums_forced_plans_give_the_plain_sums(cuda_device):
+    """Plans the sizing never picks at these sizes, launched by `_launch`:
+    one CTA, many CTAs a column, the narrowest columns, tc 256 (C =
+    4096)."""
+    from cartseg_tpu_torch.ops.cuda.channel_sums import Plan, _launch
+
+    x, dy = _sums_inputs((6, 64, 48, 40), (torch.bfloat16,) * 2, "nhwc",
+                         cuda_device)
+    for p in (Plan(True, 8, 1, 8, 1), Plan(True, 8, 700, 8, 1),
+              Plan(True, 8, 37, 1, 8), Plan(True, 8, 5, 2, 4)):
+        _check_sums(dy, x, lambda a, b, p=p: _launch(a, b, p))
+    x, _ = _sums_inputs((2, 4096, 3, 3), (torch.bfloat16,) * 2, "nhwc",
+                        cuda_device)
+    _check_sums(x, x)
 
 
 @pytest.mark.parametrize("layout", ["nhwc", "nchw"])

@@ -190,19 +190,20 @@ def test_lsr_bwd_plain_matches_jax_bwd_rule(C, label_dtype):
 
 
 def test_lsr_bwd_route_by_shape_and_alignment():
-    """The CUDA backward's vector route takes C in (2, 4, 8, 16) with
-    16-byte aligned rows (an even N at C = 2); the rest goes the general
-    route. Decided from the tensor alone, before any launch."""
-    from cartseg_tpu_torch.ops.cuda.lsr import VEC_CLASSES, bwd_route
+    """The CUDA backward's (and forward's) vector route takes C in (2, 4,
+    8, 16) with 16-byte aligned rows (an even N at C = 2); the rest goes
+    the general route. Decided from the tensor alone, before any
+    launch."""
+    from cartseg_tpu_torch.ops.cuda.lsr import VEC_CLASSES, route
 
     assert VEC_CLASSES == (2, 4, 8, 16)
     for C in VEC_CLASSES:
-        assert bwd_route(torch.zeros((6, C))) == "vector"
-    assert bwd_route(torch.zeros((6, 5))) == "general"
-    assert bwd_route(torch.zeros((7, 2))) == "general"
+        assert route(torch.zeros((6, C))) == "vector"
+    assert route(torch.zeros((6, 5))) == "general"
+    assert route(torch.zeros((7, 2))) == "general"
     flat = torch.zeros(8 * 6 + 1)
-    assert bwd_route(flat[1:].view(6, 8)) == "general"   # 4-byte offset
-    assert bwd_route(flat[:48].view(6, 8)) == "vector"
+    assert route(flat[1:].view(6, 8)) == "general"   # 4-byte offset
+    assert route(flat[:48].view(6, 8)) == "vector"
 
 
 # -------------------------------------------------------------- ABL

@@ -61,8 +61,11 @@ from cartseg_tpu_torch.models.norm import (BatchNorm2d, BNTrain,
                                            batch_norm)
 from cartseg_tpu_torch.ops.channel_sums import (channel_sums,
                                                 channel_sums_plain)
-from cartseg_tpu_torch.ops.cuda.channel_sums import (MAX_PARTIALS, THREADS,
-                                                     memory_order, plan)
+from cartseg_tpu_torch.ops.cuda.channel_sums import (BLOCKS_PER_SM,
+                                                     FINISH_FLOATS,
+                                                     MIN_COLUMN_BYTES, SMS,
+                                                     THREADS, memory_order,
+                                                     plan)
 from cartseg_tpu_torch.train import TrainConfig as TConfig
 from cartseg_tpu_torch.train import Trainer as TTrainer
 from cartseg_tpu_torch.workloads import _runner
@@ -129,30 +132,65 @@ def test_channel_sums_plain_matches_jax(shape, same, dtype, layout):
                                          err_msg=name)
 
 
-@pytest.mark.parametrize("shape,nhwc,dtypes,vec", [
-    ((6, 16, 512, 512), True, (torch.bfloat16,) * 2, 8),
-    ((6, 16, 512, 512), False, (torch.bfloat16,) * 2, 8),
-    ((6, 64, 256, 256), True, (torch.float32,) * 2, 4),
-    ((6, 64, 256, 256), True, (torch.bfloat16, torch.float32), 4),
-    ((2, 3, 7, 5), True, (torch.float32,) * 2, 1),       # C=3
-    ((2, 3, 7, 5), False, (torch.bfloat16,) * 2, 1),     # odd H*W
-    ((128, 512, 7, 7), True, (torch.bfloat16,) * 2, 8),
-    ((2, 16, 8192, 8192), False, (torch.bfloat16,) * 2, 8)])
-def test_kernel_plan_takes_every_shape(shape, nhwc, dtypes, vec):
+@pytest.mark.parametrize("shape,nhwc,dtypes,vec,ctas", [
+    ((6, 16, 512, 512), True, (torch.bfloat16,) * 2, 8, 528),  # decoder top
+    ((6, 16, 512, 512), False, (torch.bfloat16,) * 2, 8, 528),
+    ((6, 64, 256, 256), True, (torch.float32,) * 2, 4, 528),
+    ((6, 64, 256, 256), True, (torch.bfloat16, torch.float32), 4, 528),
+    ((2, 3, 7, 5), True, (torch.float32,) * 2, 1, 1),         # C=3
+    ((2, 3, 7, 5), False, (torch.bfloat16,) * 2, 1, 3),       # odd H*W
+    ((128, 512, 7, 7), True, (torch.bfloat16,) * 2, 8, 192),
+    ((2, 16, 8192, 8192), False, (torch.bfloat16,) * 2, 8, 528),
+    ((6, 512, 16, 16), True, (torch.bfloat16,) * 2, 8, 48),    # layer4
+    ((6, 256, 32, 32), True, (torch.bfloat16,) * 2, 8, 96),    # layer3
+    ((6, 128, 64, 64), True, (torch.bfloat16,) * 2, 8, 192),   # layer2
+    ((6, 64, 128, 128), True, (torch.bfloat16,) * 2, 8, 384),  # layer1
+    ((1, 16, 1, 1), True, (torch.float32,) * 2, 4, 1),
+    ((2, 4096, 3, 3), True, (torch.bfloat16,) * 2, 8, 4)])
+def test_kernel_plan_takes_every_shape(shape, nhwc, dtypes, vec, ctas):
     """The launch plan the wrapper hands the kernel: 16-byte loads where
-    the contiguous extent and the pointers allow, a block of at most 256
-    threads, at most MAX_PARTIALS partial rows, and every row or element
-    covered. A misaligned pointer takes one element at a time."""
+    the contiguous extent and the pointers allow; CTAs sized from the
+    bytes, MIN_LOADS loads a thread (so a few dozen on layer4's 1.5 MB),
+    one wave of BLOCKS_PER_SM an SM at most (the stem, the decoder top);
+    NHWC columns of a power-of-two tc group lanes that cover every channel
+    group, narrowed while the finishing CTA would read more than
+    FINISH_FLOATS partials; every row or element covered. A misaligned
+    pointer takes one element at a time."""
     p = plan(shape, nhwc, dtypes, (256, 512))
     assert p.vec == vec and p.nhwc == nhwc
-    assert 1 <= p.P <= MAX_PARTIALS
+    assert p.P >= 1 and p.P * p.gy == ctas
+    assert ctas <= SMS * BLOCKS_PER_SM
     N, C, H, W = shape
     if nhwc:
-        assert p.tc * p.R <= THREADS and p.tc == min(C // vec, THREADS)
-        assert p.P * -(-N * H * W // p.P) >= N * H * W
+        G, M = C // vec, N * H * W
+        assert p.tc & (p.tc - 1) == 0 and p.tc <= THREADS
+        assert p.gy == -(-G // p.tc) and (p.gy - 1) * p.tc < G
+        assert p.P * -(-M // p.P) >= M and p.P <= -(-M // p.rows)
+        assert (p.P * 2 * p.width <= FINISH_FLOATS or p.tc == 1
+                or p.tc // 2 * vec * min(d.itemsize for d in dtypes)
+                < MIN_COLUMN_BYTES)
     else:
-        assert (H * W) % p.vec == 0
+        assert (H * W) % p.vec == 0 and p.gy == C
+        assert p.P <= max(1, -(-N * H * W // (THREADS * vec)))
     assert plan(shape, nhwc, dtypes, (2, 512)).vec == 1
+
+
+@pytest.mark.parametrize("shape,sms,steps", [
+    ((6, 512, 16, 16), 132, 8),      # layer4: 48 CTAs, two unrolled rounds
+    ((6, 16, 512, 512), 132, 24),    # decoder top: one wave, 6 rounds
+    ((6, 32, 256, 256), 132, 12),    # three rounds
+    ((2, 24, 8, 8), 132, 2),         # the remainder loop alone
+    ((6, 64, 128, 130), 16, 49)])    # 12 rounds and a remainder of 1
+def test_kernel_plan_sizes_the_rows_a_lane_walks(shape, sms, steps):
+    """NHWC bf16: each row lane walks ceil(ceil(M / P) / R) rows, UNROLL
+    independent loads at a time and the rest one by one; layer4's plan
+    keeps MIN_LOADS a thread, and a card with fewer SMs gives each CTA
+    more rows."""
+    p = plan(shape, True, (torch.bfloat16,) * 2, (256, 512), sms)
+    N, C, H, W = shape
+    M = N * H * W
+    assert -(-(-(-M // p.P)) // p.rows) == steps
+    assert p.P * p.gy <= sms * BLOCKS_PER_SM
 
 
 # ------------------------------------------------------ one BN layer
