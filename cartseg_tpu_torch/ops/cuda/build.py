@@ -86,10 +86,10 @@ _SIGNATURES = {
     #  vec, P, tc, stream)
     "cartseg_channel_sums": (_P,) * 5 + (_I,) * 4 + (_L, _I, _L) + (_I,) * 3
     + (_P,),
-    # (x, y, loss, grad, n, gamma, alpha, vec, stream)
-    "cartseg_focal": (_P,) * 4 + (_L, _F, _F, _I, _P),
-    # (x, y, partials, out, B, M, P, vec, pexp, stream)
-    "cartseg_soft_dice": (_P,) * 4 + (_I, _L, _I, _I, _F, _P),
+    # (x, y, loss, grad, n, L, ctas, gamma, alpha, vec, route, stream)
+    "cartseg_focal": (_P,) * 4 + (_L, _L, _I, _F, _F, _I, _I, _P),
+    # (x, y, partials, counters, out, B, M, P, L, vec, pexp, stream)
+    "cartseg_soft_dice": (_P,) * 5 + (_I, _L, _I, _L, _I, _F, _P),
     # (labels, out, n, C, hi, lo, ignore, labels int64, vec, stream)
     "cartseg_one_hot": (_P, _P, _L, _I, _F, _F, _L, _I, _I, _P),
     # (kind, x, g or null, out, n, vec, stream)
@@ -191,6 +191,14 @@ def stream_of(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SMs of CUDA device `index`, for the launch plans."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def aligned16(*ts) -> int:

@@ -13,11 +13,12 @@ ops/channel_sums.py.
 One call is one CUDA kernel, counted once in `LAUNCHES["channel_sums"]`:
 its CTAs write partial rows, and the last CTA of each column (NHWC) or
 channel (NCHW) to arrive sums them in a fixed order. The arrival
-counters are one row a stream of a zeroed device buffer (`_counters`),
-made at the device's first call and reset to zero by each call's last
-CTA, so a call enqueues no memset. A call captured into a CUDA graph takes the
-capturing stream's counters, which need one call on the card before the
-capture (on any stream) to have made the device's buffer.
+counters are one row a stream of a zeroed device buffer (`_counters`,
+ops/cuda/counters.py, its own and not soft_dice's), made at the device's
+first call and reset to zero by each call's last CTA, so a call enqueues
+no memset. A call captured into a CUDA graph takes the capturing
+stream's counters, which need one call on the card before the capture
+(on any stream) to have made the device's buffer.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from cartseg_tpu_torch.ops.cuda import build as B
+from cartseg_tpu_torch.ops.cuda.counters import ArrivalCounters
 
 THREADS = 256
 # independent loads a thread issues before it adds them (csrc kUnroll)
@@ -147,39 +149,11 @@ def _sized(shape, nhwc: bool, dtypes, aligned: bool, sms: int,
     return Plan(True, vec, P, tc, gy)
 
 
-@functools.lru_cache(maxsize=None)
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-# device index -> int32 [COUNTER_SETS, MAX_COUNTERS] zeros; (device
-# index, stream) -> the address of the stream's row of them
-_COUNTERS: dict = {}
-_COUNTER_ROWS: dict = {}
-
-
-def _counters(index: int, stream: int) -> int:
-    """The address of the stream's arrival counters: a row of one zeroed
-    buffer a device, made at the device's first call outside a CUDA-graph
-    capture. The kernel leaves them zero, so they are zeroed only once."""
-    row = _COUNTER_ROWS.get((index, stream))
-    if row is not None:
-        return row
-    if index not in _COUNTERS:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(
-                "channel_sums: the first call on a device must run outside "
-                "a CUDA-graph capture (it makes the arrival counters)")
-        _COUNTERS[index] = torch.zeros((COUNTER_SETS, MAX_COUNTERS),
-                                       dtype=torch.int32,
-                                       device=torch.device("cuda", index))
-    used = sum(1 for i, _ in _COUNTER_ROWS if i == index)
-    if used == COUNTER_SETS:
-        raise RuntimeError(f"channel_sums: more than {COUNTER_SETS} streams "
-                           f"on cuda:{index}")
-    row = _COUNTERS[index][used].data_ptr()
-    _COUNTER_ROWS[(index, stream)] = row
-    return row
+# the arrival counters, one row of MAX_COUNTERS a stream
+_ARRIVALS = ArrivalCounters("channel_sums", MAX_COUNTERS, COUNTER_SETS)
+# device index -> int32 [COUNTER_SETS, MAX_COUNTERS] zeros
+_COUNTERS = _ARRIVALS.buffers
+_counters = _ARRIVALS.row
 
 
 def _check(a: torch.Tensor, b: torch.Tensor) -> str:
@@ -212,7 +186,7 @@ def channel_sums_cuda(a: torch.Tensor,
         return torch.zeros((2, a.shape[1]), dtype=torch.float32,
                            device=a.device).unbind(0)
     p = plan(a.shape, order == "nhwc", (a.dtype, b.dtype),
-             (a.data_ptr(), b.data_ptr()), _sms(a.get_device()))
+             (a.data_ptr(), b.data_ptr()), B.sm_count(a.get_device()))
     return _launch(a, b, p)
 
 

@@ -32,10 +32,11 @@
 //     the 8 warps in order finish the block.
 // Each CTA writes its fp32 partial row and counts itself in on an
 // arrival counter of its column (NHWC) or channel (NCHW) by one
-// acquire-release increment; the CTA that arrives last reads the P
-// partial rows from L2 and sums them in p order. The increment wraps the
-// counter back to 0 on that last arrival, so the next call on the stream
-// finds it zero: no memset, no second launch.
+// acquire-release increment (`arrived_last`, csrc/arrival.cuh); the
+// CTA that arrives last reads the P partial rows from L2 and sums them
+// in p order. The increment wraps the counter back to 0 on that last
+// arrival, so the next call on the stream finds it zero: no memset, no
+// second launch.
 // No float atomics: the same inputs and plan give the same bits on every
 // run. The counters belong to one stream (the wrapper keeps one set a
 // stream), since two calls in flight at once must not share them.
@@ -45,6 +46,8 @@
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "arrival.cuh"
 
 namespace {
 
@@ -94,27 +97,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
   return v;
-}
-
-// Thread 0 counts the CTA in on *count once every thread's partial
-// stores are done (the barrier), by an acquire-release increment at GPU
-// scope: its release publishes the CTA's stores, its acquire (and the
-// barrier after it) lets the last CTA read every other CTA's. True in the
-// CTA that arrived last of `arrivals`, where the counter wraps back to 0.
-__device__ __forceinline__ bool arrived_last(unsigned* count,
-                                             unsigned arrivals) {
-  __shared__ bool last;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    unsigned old;
-    asm volatile("atom.acq_rel.gpu.global.inc.u32 %0, [%1], %2;"
-                 : "=r"(old)
-                 : "l"(count), "r"(arrivals - 1)
-                 : "memory");
-    last = old == arrivals - 1;
-  }
-  __syncthreads();
-  return last;
 }
 
 // a, b: [M, C] rows. Grid (P, gy); block kThreads = tc group lanes x R

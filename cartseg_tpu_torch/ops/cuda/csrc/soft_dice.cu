@@ -12,26 +12,52 @@
 //
 // Bound on this card: memory bandwidth. It reads x and y once, 8 bytes
 // an element, and writes 2B floats: 12.6 MB at [6,512,512,1], 3.8 us at
-// 3.35 TB/s.
+// 3.35 TB/s. At that size the launch, the loads' latency and the finish
+// weigh as much as the bytes: with the L2 flushed a call takes 9.2 us
+// (the two-launch form 9.9; ATen's sum over the same 12.6 MB 11.9), with
+// the inputs in L2 5.0 us (tools/focal_dice_timing.py).
 //
 // Design. The TPU walked the samples' rows in a sequential grid and
 // carried the sums in VMEM from step to step (soft_dice.py:43-49);
-// Hopper's blocks run in no order and carry nothing. So a first launch
-// has block (q, b) sum the q-th of P ranges of sample b (L elements, a
-// multiple of 4; 16-byte loads when the wrapper says the arrays are
-// aligned and M is a multiple of 4) into fp32 partials [2, B, P], by a
-// serial sum in each thread, warp shuffles and a fixed tree over the
-// warps. A second launch folds each sample's P partials in a fixed
-// order. No float atomics: the same inputs give the same bits on every
-// run. pexp = 1 and 2 take p and p*p; other exponents powf. Offsets are
+// Hopper's CTAs run in no order and carry nothing. One launch a call:
+// grid (P, B), CTA (q, b) sums elements [q L, min((q + 1) L, M)) of
+// sample b (L a multiple of 4; the wrapper's `plan` sizes P from the
+// bytes, one wave at most). Thread t takes the loads at q L + t V +
+// k 256 V, V = 4 (16-byte loads, when the arrays are aligned and M is a
+// multiple of 4) or 1, and issues kLoads of them, of x and of y, before
+// it adds them in k order into its two sums; warp shuffles and then the
+// 8 warps in order give the CTA's partial (numer, denor), which it
+// stores and counts in on sample b's arrival counter (`arrived_last`,
+// csrc/arrival.cuh: an acquire-release increment that wraps to 0). The
+// CTA that arrives last reads the sample's P partials from L2, thread t
+// those at t, t + 256, ... in order, then shuffles and the warps in
+// order, and writes out[0, b] and out[1, b]. No second launch, no
+// memset, no float atomics: the same inputs and plan give the same bits
+// on every run. pexp = 1 and 2 take p and p * p; other exponents powf.
+// The adds are written as fmaf / __fadd_rn so that nvcc contracts
+// nothing: sn = fma(2p, y, sn), sd = sd + (p^pexp + y). Offsets are
 // int64.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "arrival.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+// 16-byte loads of x (and of y) a thread issues before it adds them
+// (ops/cuda/soft_dice.py UNROLL)
+constexpr int kUnroll = 1;
+// CTAs an SM holds at once in the plan's one wave (ops/cuda/soft_dice.py
+// BLOCKS_PER_SM)
+constexpr int kMinBlocks = 6;
+
+template <int V>
+struct alignas(4 * V) Vec {
+  float v[V];
+};
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -39,11 +65,10 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// The block's two sums into part[0][b][q] and part[1][b][q] (all threads
-// call it).
-__device__ __forceinline__ void block_store(float sn, float sd, float* part,
-                                            long long slot, long long plane) {
-  __shared__ float sw[2][kThreads / 32];
+// The block's two sums by shuffles and then the warps in order, in
+// thread 0 (all threads call it).
+__device__ __forceinline__ float2 block_sum(float sn, float sd) {
+  __shared__ float sw[2][kWarps];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   sn = warp_sum(sn);
   sd = warp_sum(sd);
@@ -52,17 +77,14 @@ __device__ __forceinline__ void block_store(float sn, float sd, float* part,
     sw[1][warp] = sd;
   }
   __syncthreads();
-  if (warp == 0) {
-    const int nw = blockDim.x / 32;
-    sn = lane < nw ? sw[0][lane] : 0.0f;
-    sd = lane < nw ? sw[1][lane] : 0.0f;
-    sn = warp_sum(sn);
-    sd = warp_sum(sd);
-    if (lane == 0) {
-      part[slot] = sn;
-      part[plane + slot] = sd;
+  float2 t = make_float2(0.0f, 0.0f);
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < kWarps; ++w) {
+      t.x += sw[0][w];
+      t.y += sw[1][w];
     }
   }
+  return t;
 }
 
 // PK: 1 -> p, 2 -> p * p, 0 -> powf(p, pexp).
@@ -70,93 +92,104 @@ template <int PK>
 __device__ __forceinline__ void add(float x, float y, float pexp, float& sn,
                                     float& sd) {
   const float prob = 1.0f / (1.0f + expf(-x));
-  const float pp = PK == 1 ? prob : (PK == 2 ? prob * prob : powf(prob, pexp));
-  sn += 2.0f * prob * y;
-  sd += pp + y;
+  const float pp = PK == 1   ? prob
+                   : PK == 2 ? __fmul_rn(prob, prob)
+                             : powf(prob, pexp);
+  sn = fmaf(2.0f * prob, y, sn);
+  sd = __fadd_rn(sd, __fadd_rn(pp, y));
 }
 
-// Grid (P, B). Block (q, b) sums elements [q L, min((q + 1) L, M)) of
-// sample b, V at a time.
+// Grid (P, B); part: [B][P] (numer, denor) partials; count: B counters;
+// out: [2, B].
 template <int V, int PK>
-__global__ void dice_partials(const float* __restrict__ x,
-                              const float* __restrict__ y,
-                              float* __restrict__ part, long long M,
-                              long long L, float pexp) {
-  const int q = blockIdx.x, b = blockIdx.y;
-  const long long base = (long long)b * M;
-  const long long j0 = (long long)q * L;
-  const long long j1 = min(M, j0 + L);
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+dice_sums(const float* __restrict__ x, const float* __restrict__ y,
+          float2* __restrict__ part, unsigned* __restrict__ count,
+          float* __restrict__ out, long long M, long long L, float pexp) {
+  constexpr int kLoads = V == 4 ? kUnroll : 4 * kUnroll;
+  constexpr long long kStep = (long long)kThreads * V;
+  const int q = blockIdx.x, b = blockIdx.y, P = gridDim.x;
+  const float* xs = x + (long long)b * M;
+  const float* ys = y + (long long)b * M;
+  const long long j1 = min(M, (long long)q * L + L);
   float sn = 0.0f, sd = 0.0f;
-  for (long long j = j0 + (long long)threadIdx.x * V; j < j1;
-       j += (long long)blockDim.x * V) {
-    if (V == 4) {
-      const float4 xv = *reinterpret_cast<const float4*>(x + base + j);
-      const float4 yv = *reinterpret_cast<const float4*>(y + base + j);
-      add<PK>(xv.x, yv.x, pexp, sn, sd);
-      add<PK>(xv.y, yv.y, pexp, sn, sd);
-      add<PK>(xv.z, yv.z, pexp, sn, sd);
-      add<PK>(xv.w, yv.w, pexp, sn, sd);
-    } else {
-      add<PK>(x[base + j], y[base + j], pexp, sn, sd);
+  for (long long j = (long long)q * L + (long long)threadIdx.x * V; j < j1;
+       j += kLoads * kStep) {
+    Vec<V> xv[kLoads], yv[kLoads];
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      if (j + u * kStep < j1) {
+        xv[u] = *reinterpret_cast<const Vec<V>*>(xs + j + u * kStep);
+        yv[u] = *reinterpret_cast<const Vec<V>*>(ys + j + u * kStep);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      if (j + u * kStep < j1) {
+#pragma unroll
+        for (int k = 0; k < V; ++k)
+          add<PK>(xv[u].v[k], yv[u].v[k], pexp, sn, sd);
+      }
     }
   }
-  const long long P = gridDim.x, Bn = gridDim.y;
-  block_store(sn, sd, part, (long long)b * P + q, Bn * P);
-}
+  float2 t = block_sum(sn, sd);
+  float2* rows = part + (long long)b * P;
+  if (threadIdx.x == 0) rows[q] = t;
+  if (!arrived_last(count + b, P)) return;
 
-// part [2, B, P] -> out [2, B]. Grid (B, 2): block (b, k) folds the P
-// partials of out[k, b], thread t those at q = t, t + kThreads, ...
-__global__ void dice_finish(const float* __restrict__ part,
-                            float* __restrict__ out, int P) {
-  const int b = blockIdx.x, k = blockIdx.y, Bn = gridDim.x;
-  const float* src = part + ((long long)k * Bn + b) * P;
-  float s = 0.0f;
-  for (int q = threadIdx.x; q < P; q += blockDim.x) s += src[q];
-  __shared__ float sw[kThreads / 32];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  s = warp_sum(s);
-  if (lane == 0) sw[warp] = s;
-  __syncthreads();
-  if (warp == 0) {
-    s = lane < (int)(blockDim.x / 32) ? sw[lane] : 0.0f;
-    s = warp_sum(s);
-    if (lane == 0) out[k * Bn + b] = s;
+  // the last CTA of sample b: thread t the partials t, t + 256, ... in
+  // order, then shuffles and the warps in order
+  sn = sd = 0.0f;
+  for (int p = threadIdx.x; p < P; p += kThreads) {
+    const float2 v = __ldcg(rows + p);
+    sn += v.x;
+    sd += v.y;
+  }
+  t = block_sum(sn, sd);
+  if (threadIdx.x == 0) {
+    out[b] = t.x;
+    out[gridDim.y + b] = t.y;
   }
 }
 
 template <int V>
-void launch(const float* x, const float* y, float* part, int Bn,
-            long long M, long long L, int P, float pexp, cudaStream_t s) {
+void launch(const float* x, const float* y, float2* part, unsigned* count,
+            float* out, int Bn, long long M, long long L, int P, float pexp,
+            cudaStream_t s) {
   dim3 grid((unsigned)P, (unsigned)Bn);
   if (pexp == 1.0f)
-    dice_partials<V, 1><<<grid, kThreads, 0, s>>>(x, y, part, M, L, pexp);
+    dice_sums<V, 1><<<grid, kThreads, 0, s>>>(x, y, part, count, out, M, L,
+                                              pexp);
   else if (pexp == 2.0f)
-    dice_partials<V, 2><<<grid, kThreads, 0, s>>>(x, y, part, M, L, pexp);
+    dice_sums<V, 2><<<grid, kThreads, 0, s>>>(x, y, part, count, out, M, L,
+                                              pexp);
   else
-    dice_partials<V, 0><<<grid, kThreads, 0, s>>>(x, y, part, M, L, pexp);
+    dice_sums<V, 0><<<grid, kThreads, 0, s>>>(x, y, part, count, out, M, L,
+                                              pexp);
 }
 
 }  // namespace
 
-// x, y: [B, M] float32; part: [2, B, P] float32 scratch; out: [2, B]
-// float32 (numer, denor). vec = 4: M is a multiple of 4 and both
-// pointers are 16-byte aligned; else 1. The wrapper (ops/cuda/
-// soft_dice.py) picks P.
+// x, y: [B, M] float32; part: [B, P] float2 scratch; count: B zeroed
+// unsigned counters private to the stream, zero again when the call
+// ends; out: [2, B] float32 (numer, denor). vec = 4: M is a multiple of 4
+// and both pointers are 16-byte aligned; else 1. P CTAs a sample of L
+// elements each (L a multiple of 4, (P - 1) L < M <= P L). The wrapper
+// (ops/cuda/soft_dice.py `plan`) picks vec, P and L.
 extern "C" int cartseg_soft_dice(const float* x, const float* y, float* part,
-                                 float* out, int Bn, long long M, int P,
-                                 int vec, float pexp, void* stream) {
+                                 unsigned* count, float* out, int Bn,
+                                 long long M, int P, long long L, int vec,
+                                 float pexp, void* stream) {
   if (Bn <= 0 || M <= 0) return (int)cudaGetLastError();
-  if (P <= 0 || Bn > 65535 || (vec != 1 && vec != 4) || M % vec != 0)
+  if (P <= 0 || Bn > 65535 || L <= 0 || L % 4 != 0 ||
+      (long long)(P - 1) * L >= M || (long long)P * L < M ||
+      (vec != 1 && vec != 4) || M % vec != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  long long L = (M + P - 1) / P;
-  L = (L + vec - 1) / vec * vec;
+  float2* rows = reinterpret_cast<float2*>(part);
   if (vec == 4)
-    launch<4>(x, y, part, Bn, M, L, P, pexp, s);
+    launch<4>(x, y, rows, count, out, Bn, M, L, P, pexp, s);
   else
-    launch<1>(x, y, part, Bn, M, L, P, pexp, s);
-  int rc = (int)cudaGetLastError();
-  if (rc != 0) return rc;
-  dice_finish<<<dim3((unsigned)Bn, 2), kThreads, 0, s>>>(part, out, P);
+    launch<1>(x, y, rows, count, out, Bn, M, L, P, pexp, s);
   return (int)cudaGetLastError();
 }

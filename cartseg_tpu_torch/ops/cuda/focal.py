@@ -1,21 +1,63 @@
 """Sigmoid focal loss (the CUDA-kernel variant) and its gradient in one
-pass: the CUDA kernel's wrapper and its plain PyTorch version.
+pass: the CUDA kernel's wrapper, its launch plan and its plain PyTorch
+version.
 
 Counterpart of cartseg_tpu/ops/pallas/focal.py (`_fused_kernel`). For
 float32 logits x and targets y of one shape it returns (loss, grad),
 both elementwise: loss = -|y - p|^gamma * ce and grad = d loss / d x
 (focal.py:25-37). A wrapper given CPU tensors runs the plain version;
 given CUDA tensors it launches the kernel (csrc/focal.cu) or raises.
-Nothing falls back.
+Nothing falls back. One call is one CUDA kernel, counted once in
+`LAUNCHES["focal"]`: one exp an element, the exponent's route picked by
+`route` (gamma 2 and 1 by multiplies, any other by powf), the grid by
+`plan` (at most one wave, equal ranges).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from cartseg_tpu_torch.ops.cuda import build as B
+
+THREADS = 256
+# 16-byte loads of x (and of y) a thread issues a round, before its math
+# (csrc kUnroll)
+UNROLL = 2
+# CTAs of 256 threads an SM holds at once (csrc kMinBlocks): a call fills
+# one wave at most. 2 loads a round in 4 CTAs an SM beat 1, 4 and 8 loads
+# and 5 or 8 CTAs (8 caps registers at 32 and spills) on the card (PERF.md
+# §6)
+BLOCKS_PER_SM = 4
+# the SMs of an H100 SXM, where the plan is not handed the card's count
+SMS = 132
+
+
+class Plan(NamedTuple):
+    vec: int    # 4: 16-byte loads and stores; 1: one element at a time
+    ctas: int   # CTAs in the grid
+    L: int      # elements a CTA takes (a multiple of 4; the last fewer)
+
+
+def plan(n: int, aligned: bool, sms: int = SMS) -> Plan:
+    """The kernel's launch geometry for n elements on a card of `sms`
+    SMs: enough CTAs that each thread issues UNROLL 16-byte loads of x
+    (and of y), at most one wave (BLOCKS_PER_SM an SM); CTA b takes
+    elements [b L, (b + 1) L), L a multiple of 4, so every CTA has the
+    same work but the last. 16-byte loads when every pointer is aligned,
+    else one element at a time (the same ranges)."""
+    rounds = -(-n // (THREADS * 4 * UNROLL))
+    ctas = max(1, min(sms * BLOCKS_PER_SM, rounds))
+    L = -(-n // ctas)
+    L = max(4, -(-L // 4) * 4)
+    return Plan(4 if aligned else 1, -(-n // L), L)
+
+
+def route(gamma: float) -> int:
+    """The kernel's exponent route: 2 (a^g = a a, a^(g-1) = a) for
+    gamma = 2, 1 (a and 1) for gamma = 1, 0 (powf) for any other."""
+    return {2.0: 2, 1.0: 1}.get(float(gamma), 0)
 
 
 def focal_plain(x: torch.Tensor, y: torch.Tensor, gamma: float,
@@ -55,12 +97,22 @@ def focal_fwd(x: torch.Tensor, y: torch.Tensor, gamma: float,
     grad = torch.empty_like(x)
     if x.numel() == 0:
         return loss, grad
+    p = plan(x.numel(), bool(B.aligned16(x, y, loss, grad)),
+             B.sm_count(x.get_device()))
+    return _launch(x, y, gamma, alpha, p, loss, grad)
+
+
+def _launch(x: torch.Tensor, y: torch.Tensor, gamma: float, alpha: float,
+            p: Plan, loss: torch.Tensor,
+            grad: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One kernel launch on plan p into loss and grad (the tests force
+    plans)."""
     lib = B.load_library()
     with torch.cuda.device(x.device):
         rc = lib.cartseg_focal(x.data_ptr(), y.data_ptr(), loss.data_ptr(),
-                               grad.data_ptr(), x.numel(), float(gamma),
-                               float(alpha), B.aligned16(x, y, loss, grad),
-                               B.stream_of(x))
+                               grad.data_ptr(), x.numel(), p.L, p.ctas,
+                               float(gamma), float(alpha), p.vec,
+                               route(gamma), B.stream_of(x))
     B.check(rc, "focal_fwd")
     B.LAUNCHES["focal"] += 1
     return loss, grad

@@ -48,12 +48,15 @@ Phases, in order; any failure raises and the exit code is non-zero:
      channels_last and contiguous, fp32 and bf16, (x, x) and (dy, x),
      within 1e-5 of the per-channel sum of |.| and the same bits on a
      second call; the loss zoo's kernels at the path shapes: focal (loss
-     and gradient) at [6,512,512,1] and [20,224,224,1], mish / swish
+     and gradient) at [6,512,512,1] and [20,224,224,1] with gamma 2 and,
+     at the first, gamma 1 and 1.5 (the other exponent routes) and the
+     scalar route (4 bytes past a 16-byte boundary), mish / swish
      forward and g * f' backward at [6,512,512,16] and [12288,2048]
      within 2e-6 of max |plain|, hswish there bit for bit, soft-Dice's
-     sums at [6,512,512,1] for p = 1 and 2 within 1e-6 relative and the
-     same bits twice, the smoothed one-hot at [6,262144] C = 8 (ignore
-     255, int64 and int32 labels) bit for bit;
+     sums at [6,512,512,1] for p = 1, 2 and 1.5 and, at p = 2, on the
+     scalar route ([6,262143] 4 bytes past a boundary) within 1e-6
+     relative and the same bits twice, the smoothed one-hot at
+     [6,262144] C = 8 (ignore 255, int64 and int32 labels) bit for bit;
   4. the workloads through their CLI entry points, each with the launch
      counts set to 0 just before it and read just after:
      a. pseudo-labels (workloads/create_pseudo_labels.main) on a
@@ -176,7 +179,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
      against torch.batch_norm_stats and
      torch.batch_norm_backward_reduce); the loss zoo's kernels at the
      path shapes in device time (profiler, the L2 flushed before each
-     call) against their plain versions,
+     call) against their plain versions (focal and soft-Dice one CUDA
+     kernel a call, focal_fwd_bwd and dice_sums, and no memset),
      F.mish / F.silu / F.hardswish and ATen's mish/silu/hardswish
      backward, and their bounds, then each activation forward and
      backward against its PyTorch call in ACT_PAIRS alternating cold-L2
@@ -2759,17 +2763,33 @@ def phase_compare_zoo(dev) -> dict:
     errs, e = {}, []
     for i, shape in enumerate(FOCAL_SHAPES):
         x, y = elem_inputs(shape, dev, SEED + i)
-        got, want = focal_fwd(x, y, 2.0, 0.25), focal_plain(x, y, 2.0, 0.25)
-        for what, a, b in zip(("loss", "grad"), got, want):
-            e.append(check_rel(f"focal {what} {list(shape)}", a, b,
-                               ELEM_TOL))
+        # gamma 2 at both shapes; at the first, the other exponent routes
+        # (gamma 1; 1.5 by powf) and the scalar route (4 bytes past a
+        # 16-byte boundary)
+        cases = [(2.0, x, y, "")]
+        if i == 0:
+            cases += [(1.0, x, y, ""), (1.5, x, y, ""),
+                      (2.0, x.view(-1)[1:], y.view(-1)[1:], " unaligned")]
+        for gamma, xs, ys, tag in cases:
+            got = focal_fwd(xs, ys, gamma, 0.25)
+            want = focal_plain(xs, ys, gamma, 0.25)
+            for what, a, b in zip(("loss", "grad"), got, want):
+                e.append(check_rel(f"focal {what} {list(shape)} gamma "
+                                   f"{gamma}{tag}", a, b, ELEM_TOL))
     errs["focal"] = max(e)
 
     x, y = dice_inputs(dev)
+    B, M = x.shape
+    # the path's [6, 262144] at p = 1, 2 and 1.5 (powf); at p = 2 the
+    # scalar route, [6, 262143] 4 bytes past a 16-byte boundary
+    ragged = (x.view(-1)[1:1 + B * (M - 1)].view(B, M - 1),
+              y.view(-1)[1:1 + B * (M - 1)].view(B, M - 1))
     e = []
-    for pexp in (1.0, 2.0):
-        got, again = soft_dice_sums(x, y, pexp), soft_dice_sums(x, y, pexp)
-        want = soft_dice_sums_plain(x, y, pexp)
+    for pexp, (xs, ys) in ((1.0, (x, y)), (2.0, (x, y)), (1.5, (x, y)),
+                           (2.0, ragged)):
+        got, again = soft_dice_sums(xs, ys, pexp), soft_dice_sums(xs, ys,
+                                                                  pexp)
+        want = soft_dice_sums_plain(xs, ys, pexp)
         torch.cuda.synchronize()
         for what, a, b, h in zip(("numer", "denor"), got, want, again):
             err = (a - b).abs()
@@ -2777,11 +2797,11 @@ def phase_compare_zoo(dev) -> dict:
             if not bool((err <= DICE_TOL * b.abs()).all()) or \
                     not torch.equal(a, h):
                 raise AssertionError(
-                    f"soft_dice p={pexp} {what}: max rel err {rel} "
-                    f"(tolerance {DICE_TOL}), same bits twice "
+                    f"soft_dice p={pexp} {what} {list(xs.shape)}: max rel "
+                    f"err {rel} (tolerance {DICE_TOL}), same bits twice "
                     f"{torch.equal(a, h)}")
             e.append(float(err.max()))
-            log(f"  soft_dice p={pexp} {what} {list(DICE_SHAPE)}: max rel "
+            log(f"  soft_dice p={pexp} {what} {list(xs.shape)}: max rel "
                 f"err {rel:.3e} (tolerance {DICE_TOL}); the same bits on a "
                 f"second call")
     errs["soft_dice"] = max(e)
@@ -3045,12 +3065,24 @@ def phase_zoo_timing(dev, card: str) -> dict:
             f"({bound[1]}), kernel at {bound[0] / ms:.3f} of it [{card}]")
         rows.setdefault(name, (ms, p1, ld, bound[0], bound[1]))
 
+    def one_kernel(name, label, call, symbol):
+        """One CUDA kernel a call, `symbol`, and no memset (a CUDA graph
+        of the call)."""
+        names, _ = kernels_a_call(call, name)
+        if len(names) != 1 or symbol not in names[0]:
+            raise AssertionError(f"a {name} call {label} ran {names}; want "
+                                 f"one {symbol} kernel")
+        log(f"  {name} {label}: one CUDA kernel a call ({names[0]}), no "
+            f"memset")
+
     for i, shape in enumerate(FOCAL_SHAPES):
         x, y = elem_inputs(shape, dev, SEED + i)
         measure("focal", str(list(shape)),
                 lambda: focal_fwd(x, y, 2.0, 0.25),
                 lambda: focal_plain(x, y, 2.0, 0.25), "focal",
                 zoo_bound("focal", 4 * nbytes(x), x.numel()))
+        one_kernel("focal", str(list(shape)),
+                   lambda: focal_fwd(x, y, 2.0, 0.25), "focal_fwd_bwd")
     x, y = dice_inputs(dev)
     for pexp in (1.0, 2.0):
         measure("soft_dice", f"{list(DICE_SHAPE)} p={pexp}",
@@ -3058,6 +3090,8 @@ def phase_zoo_timing(dev, card: str) -> dict:
                 lambda: soft_dice_sums_plain(x, y, pexp), "dice_",
                 zoo_bound("soft_dice", nbytes(x, y) + 2 * x.shape[0] * 4,
                           x.numel()))
+        one_kernel("soft_dice", f"{list(DICE_SHAPE)} p={pexp}",
+                   lambda: soft_dice_sums(x, y, pexp), "dice_sums")
     lab = one_hot_labels(dev)
     out = one_hot(lab, ONE_HOT_C, 0.1, ONE_HOT_IGNORE)
     measure("one_hot", f"{list(ONE_HOT_SHAPE)} C={ONE_HOT_C} int64",

@@ -1129,6 +1129,147 @@ def test_soft_dice_kernel_unaligned_and_empty(cuda_device):
     assert build.LAUNCHES["soft_dice"] == 0
 
 
+# the focal kernel's exponent routes: 2 (a a, a), 1 (a, 1), 0 (powf) at
+# gamma 1.5 and 3
+FOCAL_GAMMAS = (2.0, 1.0, 1.5, 3.0)
+
+
+@pytest.mark.parametrize("gamma", FOCAL_GAMMAS)
+def test_focal_kernel_each_gamma_route(cuda_device, gamma):
+    """Each route at a path-like shape, at an odd size one element past a
+    16-byte boundary (the scalar route) and on edge logits (+-30, +-1e-3,
+    0, -100 against both labels): within ELEM_TOL of max |plain|; at
+    y == p (x = 0, y = 0.5; x = 30, y = 1) the loss is an exact zero, and
+    the gradient too where gamma > 1."""
+    x, y = _focal_inputs((6, 64, 64, 1), cuda_device)
+    big_x, big_y = _focal_inputs((4100,), cuda_device, seed=1)
+    ex = torch.tensor([0.0, 30.0] + [v for v in (30.0, -30.0, 1e-3, -1e-3,
+                                                 0.0, -100.0)
+                                     for _ in range(2)], device=cuda_device)
+    ey = torch.tensor([0.5, 1.0] + [0.0, 1.0] * 6, device=cuda_device)
+    for xs, ys in ((x, y), (big_x[1:], big_y[1:]), (ex, ey)):
+        loss, grad = focal_fwd(xs, ys, gamma, 0.25)
+        want = focal_plain(xs, ys, gamma, 0.25)
+        _within(f"focal loss gamma {gamma}", loss, want[0])
+        _within(f"focal grad gamma {gamma}", grad, want[1])
+        assert torch.isfinite(loss).all() and torch.isfinite(grad).all()
+        lf, gf = loss.view(-1), grad.view(-1)
+        assert float(lf[0]) == 0.0
+        if gamma > 1.0:
+            assert float(gf[0]) == 0.0
+    assert float(loss[1]) == 0.0
+    if gamma > 1.0:
+        assert float(grad[1]) == 0.0
+
+
+def test_focal_forced_plans_give_the_plain_values(cuda_device):
+    """Plans the sizing never picks at these sizes, launched by `_launch`:
+    one CTA for every element, many small CTAs, the scalar route on
+    aligned inputs, and a plan of more CTAs than a wave holds."""
+    from cartseg_tpu_torch.ops.cuda.focal import Plan, _launch
+
+    x, y = _focal_inputs((70003,), cuda_device)
+    want = focal_plain(x, y, 2.0, 0.25)
+    n = x.numel()
+    for p in (Plan(4, 1, 70004), Plan(4, 17501, 4), Plan(1, 35, 2004),
+              Plan(4, 1945, 36)):
+        loss, grad = _launch(x, y, 2.0, 0.25, p, torch.empty_like(x),
+                             torch.empty_like(x))
+        assert (p.ctas - 1) * p.L < n <= p.ctas * p.L
+        _within(f"focal loss {p}", loss, want[0])
+        _within(f"focal grad {p}", grad, want[1])
+
+
+def _dice_inputs(B, M, dev, seed=0):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    x = (torch.randn((B, M), generator=gen) * 2).to(dev)
+    y = (torch.rand((B, M), generator=gen) > 0.6).float().to(dev)
+    return x, y
+
+
+def _dice_close(got, want):
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert bool(((g - w).abs() <= DICE_TOL * w.abs()).all()), (g, w)
+
+
+def test_zoo_calls_are_one_kernel_no_memset(cuda_device):
+    """One CUDA kernel a call and no memset, by a CUDA graph of the call:
+    focal on each route, aligned and one element past a 16-byte boundary;
+    soft-Dice at p = 1, 2 and 1.5 at the path shape (64 CTAs a sample),
+    at an odd M and unaligned (the first version ran two kernels). The
+    soft-Dice arrival counters are back at zero after every call."""
+    from cartseg_tpu_torch.ops.cuda import soft_dice as sd
+
+    x, y = _focal_inputs((6, 64, 64, 1), cuda_device)
+    for gamma in FOCAL_GAMMAS:
+        for xs, ys in ((x, y), (x.view(-1)[1:], y.view(-1)[1:])):
+            calls = _kernels_a_call(lambda: focal_fwd(xs, ys, gamma, 0.25))
+            assert len(calls) == 1 and "focal_fwd_bwd" in next(iter(calls))
+            assert sum(calls.values()) == 1, calls
+    x, y = _dice_inputs(6, 512 * 512, cuda_device)
+    odd_x, odd_y = _dice_inputs(3, 1001, cuda_device)
+    cases = ((x, y), (odd_x, odd_y),
+             (x.view(-1)[1:8193].view(2, 4096), y.view(-1)[1:8193].view(
+                 2, 4096)))
+    for pexp in (1.0, 2.0, 1.5):
+        for xs, ys in cases:
+            calls = _kernels_a_call(lambda: soft_dice_sums(xs, ys, pexp))
+            assert len(calls) == 1 and "dice_sums" in next(iter(calls))
+            assert sum(calls.values()) == 1, calls
+            torch.cuda.synchronize()
+            buf = sd._ARRIVALS.buffers[torch.device(cuda_device).index or 0]
+            assert int(buf.count_nonzero()) == 0
+
+
+def test_soft_dice_same_bits_on_a_stream_and_after_graph_capture(
+        cuda_device):
+    """The path shape and a ragged one: the bits of an eager call on a
+    second stream, and of a call captured into a CUDA graph and replayed
+    twice (each stream takes its own counters), equal the first call's;
+    the counters are back at zero afterwards."""
+    from cartseg_tpu_torch.ops.cuda import soft_dice as sd
+
+    for B, M in ((6, 512 * 512), (5, 77777)):
+        x, y = _dice_inputs(B, M, cuda_device, seed=B)
+        for pexp in (1.0, 2.0):
+            want = soft_dice_sums(x, y, pexp)
+            _dice_close(want, soft_dice_sums_plain(x, y, pexp))
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                other = soft_dice_sums(x, y, pexp)
+            torch.cuda.current_stream().wait_stream(side)
+            torch.cuda.synchronize()
+            assert all(torch.equal(g, w) for g, w in zip(other, want))
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                got = soft_dice_sums(x, y, pexp)
+            for _ in range(2):
+                graph.replay()
+                torch.cuda.synchronize()
+                assert all(torch.equal(g, w) for g, w in zip(got, want))
+            del graph
+    torch.cuda.synchronize()
+    buf = sd._ARRIVALS.buffers[torch.device(cuda_device).index or 0]
+    assert int(buf.count_nonzero()) == 0
+
+
+def test_soft_dice_forced_plans_give_the_plain_sums(cuda_device):
+    """Plans the sizing never picks, launched by `_launch`: one CTA a
+    sample, the most CTAs a sample (one load each), the scalar route on
+    aligned inputs, and many CTAs over one sample."""
+    from cartseg_tpu_torch.ops.cuda.soft_dice import Plan, _launch
+
+    x, y = _dice_inputs(4, 65536, cuda_device)
+    for p in (Plan(4, 1, 65536), Plan(4, 16384, 4), Plan(1, 33, 2000),
+              Plan(4, 298, 220)):
+        assert (p.P - 1) * p.L < 65536 <= p.P * p.L
+        for pexp in (1.0, 2.0):
+            _dice_close(_launch(x, y, pexp, p),
+                        soft_dice_sums_plain(x, y, pexp))
+
+
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
 @pytest.mark.parametrize("C,lb_smooth,ignore", [(8, 0.2, 255), (8, 0.1, -100),
                                                 (5, 0.3, 255), (1, 0.0, 255)])
