@@ -2,13 +2,13 @@
 decode -> letterbox -> resize to the training resolution, uint8 out.
 Augmentation and normalisation run on the device (data/augment.py).
 
-Images and masks are read through utils/image_io (cv2 when installed,
-else the PNG codec). A resize runs only when the letterboxed frame or
-the mask differs from the training size, and then needs cv2
-(INTER_LINEAR for images, INTER_NEAREST for masks, as the JAX dataset;
-its fused C++ letterbox+resize in cartseg_tpu.native computes the same
-cv2 resize). The synthetic tree writer is utils/synthetic.py
-`make_png_pair_tree`.
+Images and masks are read through utils/image_io for the run's device
+(a JPEG on a card through nvJPEG, on the CPU through cv2; PNG through
+the PNG codec or cv2). Images are letterboxed and resized by the native
+C++ loader (`native.letterbox_resize`), as the JAX dataset does. Masks
+are resized by cv2's INTER_NEAREST index rule (`resize_nearest`), which
+the JAX dataset takes from cv2. No step needs OpenCV. The synthetic
+tree writer is utils/synthetic.py `make_png_pair_tree`.
 """
 
 from __future__ import annotations
@@ -18,68 +18,75 @@ from typing import Sequence, Tuple
 import numpy as np
 
 from cartseg_tpu_torch import geometry as G
+from cartseg_tpu_torch import native
 from cartseg_tpu_torch.data.pairing import Pair
 from cartseg_tpu_torch.utils import image_io
 
 
-def _resize(img: np.ndarray, size: Tuple[int, int], nearest: bool,
-            what: str) -> np.ndarray:
-    if img.shape[:2] == tuple(size):
-        return img
-    if not image_io.have_cv2():
-        raise RuntimeError(
-            f"resizing the {img.shape[1]}x{img.shape[0]} {what} to "
-            f"{size[1]}x{size[0]} needs OpenCV (cv2), which is not "
-            "installed; give frames whose letterbox (and masks) are "
-            "already at the training size")
-    import cv2
+def _nearest_index(n_src: int, n_dst: int) -> np.ndarray:
+    """cv2 INTER_NEAREST's source index of each destination index:
+    floor(i * (1 / (dst / src))) in double precision, clamped to src - 1.
+    Equal to cv2.resize on every size pair tried (tests/
+    test_torch_native.py); the integer floor(i * src / dst) and
+    `native.resize_nearest` differ from it at some pairs."""
+    idx = np.floor(np.arange(n_dst) * (1.0 / (n_dst / n_src)))
+    return np.minimum(idx.astype(np.int64), n_src - 1)
 
-    return cv2.resize(img, (size[1], size[0]),
-                      interpolation=cv2.INTER_NEAREST if nearest
-                      else cv2.INTER_LINEAR)
+
+def resize_nearest(mask: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """cv2.resize(mask, (w, h), interpolation=cv2.INTER_NEAREST) of an
+    HxW array, without OpenCV."""
+    h, w = mask.shape[:2]
+    if (h, w) == tuple(size):
+        return mask
+    return np.ascontiguousarray(
+        mask[_nearest_index(h, size[0])[:, None],
+             _nearest_index(w, size[1])[None, :]])
 
 
 class SegmentationDataset:
     """Indexable host dataset over Pair records.
 
-    __getitem__ returns (image_u8 [H,W,3], mask_u8 [H,W] in {0,1}). The
-    image is letterboxed (side-pad + square) then resized LINEAR; the
-    mask is resized NEAREST without letterboxing (masks were made in
-    letterboxed space, train_bce_dice.py:261). The JAX dataset returns
-    the mask as float32; uint8 here moves a quarter of the bytes to the
-    card, where the loader makes it float32.
+    `load(idx, device)` returns (image_u8 [H,W,3], mask_u8 [H,W] in
+    {0,1}), reading the files for `device`; `dataset[idx]` reads them for
+    the CPU. The image is letterboxed (side-pad + square) and resized
+    LINEAR in one native pass; the mask is resized NEAREST without
+    letterboxing (masks were made in letterboxed space,
+    train_bce_dice.py:261). The JAX dataset returns the mask as float32;
+    uint8 here moves a quarter of the bytes to the card, where the loader
+    makes it float32.
     """
 
     def __init__(self, pairs: Sequence[Pair], img_size: Tuple[int, int],
                  side_padding_ratio: float = G.SIDE_PADDING_RATIO,
-                 letterbox: bool = True, mask_threshold: float = 127.0):
+                 mask_threshold: float = 127.0):
         self.pairs = list(pairs)
         self.img_size = tuple(img_size)
         self.side_padding_ratio = side_padding_ratio
-        self.letterbox = letterbox
         self.mask_threshold = mask_threshold
 
     def __len__(self):
         return len(self.pairs)
 
     def __getitem__(self, idx: int):
+        return self.load(idx, "cpu")
+
+    def load(self, idx: int, device="cpu"):
         rec = self.pairs[idx]
-        img = image_io.read_rgb(rec.image)
+        img = image_io.read_rgb(rec.image, device)
         if img is None:
             raise RuntimeError(f"Could not read image: {rec.image}")
-        if self.letterbox:
-            img = G.letterbox_side_pad(
-                img, side_padding_ratio=self.side_padding_ratio)
-        img = _resize(img, self.img_size, False, "letterboxed frame")
+        img = native.letterbox_resize(img, self.img_size,
+                                      self.side_padding_ratio)
         if rec.mask is None:
             mask = np.zeros(self.img_size, np.uint8)
         else:
-            m = image_io.read_gray(rec.mask)
+            m = image_io.read_gray(rec.mask, device)
             if m is None:
                 raise RuntimeError(f"Could not read mask: {rec.mask}")
-            m = _resize(m, self.img_size, True, "mask")
+            m = resize_nearest(m, self.img_size)
             mask = (m > self.mask_threshold).astype(np.uint8)
-        return np.ascontiguousarray(img), mask
+        return img, mask
 
     def batch(self, indices: Sequence[int]):
         imgs, masks = zip(*(self[i] for i in indices))

@@ -2,7 +2,9 @@
 thread-prefetched loader one batch ahead of the step.
 
 The host side (decode + letterbox + resize, uint8) runs in a small
-thread pool; each batch is stacked into pinned memory (on a CUDA
+thread pool whose threads read the files for the run's device (a JPEG
+on a card is decoded by nvJPEG, each thread with its own decode state
+and stream); each batch is stacked into pinned memory (on a CUDA
 device) and copied with `non_blocking=True` to the explicit device
 while the previous step computes. Augmentation and normalisation run on
 the device. Multi-host row slicing (the JAX loader's sharding path) is
@@ -62,14 +64,16 @@ class Loader:
                     continue
             return False
 
+        def read(idx):
+            return self.dataset.load(idx, self.device)
+
         def produce():
             try:
                 with ThreadPoolExecutor(self.num_threads) as pool:
                     for idxs in self._batches(order):
                         if stop.is_set():
                             return
-                        items = list(pool.map(self.dataset.__getitem__,
-                                              idxs))
+                        items = list(pool.map(read, idxs))
                         imgs = np.stack([it[0] for it in items])
                         masks = np.stack([it[1] for it in items])[..., None]
                         put = (self._to_device(imgs),

@@ -1,7 +1,9 @@
 """Letterbox geometry (counterpart of cartseg_tpu/geometry.py:27-116).
 
 Pure integer math in numpy, bit-equal to the JAX package's, because
-masks made by one stage are consumed letterboxed by every other stage.
+masks made by one stage are consumed letterboxed by every other stage;
+`letterbox_resize` letterboxes and resizes a frame in one pass of the
+native C++ loader.
 The reference arithmetic is `letterbox_image_with_side_padding`
 (train_bce_dice.py:42-85): `round()` for the side padding and floor
 division for the centring offsets.
@@ -10,10 +12,11 @@ division for the centring offsets.
 from __future__ import annotations
 
 import dataclasses
-import importlib.util
 from typing import Tuple
 
 import numpy as np
+
+from cartseg_tpu_torch import native
 
 SIDE_PADDING_RATIO = 0.1  # reference default, train_bce_dice.py:32
 
@@ -81,19 +84,19 @@ def letterbox_side_pad(
     return canvas
 
 
-def resize_square(image: np.ndarray, size: int) -> np.ndarray:
-    """Resize a letterboxed frame to size x size with cv2 INTER_LINEAR
-    (as cartseg_tpu/infer/pseudo_labels.py:172). A frame that already
-    has the target size is returned as is, so the path runs without
-    OpenCV when the inputs are sized for it."""
-    if image.shape[0] == size and image.shape[1] == size:
-        return image
-    if importlib.util.find_spec("cv2") is None:
-        raise RuntimeError(
-            f"resizing a {image.shape[1]}x{image.shape[0]} letterboxed "
-            f"frame to {size}x{size} needs OpenCV (cv2), which is not "
-            "installed; give frames whose letterbox is already "
-            f"{size}x{size}")
-    import cv2
+def letterbox_resize(image: np.ndarray, size: int,
+                     side_padding_ratio: float = SIDE_PADDING_RATIO
+                     ) -> np.ndarray:
+    """Letterbox an HxWx3 uint8 frame (side padding, then square
+    padding, colour 0) and resize it bilinearly to size x size in one
+    pass of the native C++ loader (`native.letterbox_resize`, the JAX
+    dataset's resize). Against the JAX pseudo-labeller's
+    `letterbox_side_pad` + cv2 INTER_LINEAR it is bit-equal where the
+    letterbox is an integer multiple of `size` (1280x720 -> 512^2, a
+    frame whose letterbox is already size^2); elsewhere it differs by at
+    most 1 LSB on a few percent of pixels when downscaling (cv2 weighs
+    in 11-bit fixed point), and by more on upscales where the content
+    touches the canvas edge, which cv2 replicates and this pads
+    (tests/test_torch_native.py)."""
+    return native.letterbox_resize(image, (size, size), side_padding_ratio)
 
-    return cv2.resize(image, (size, size), interpolation=cv2.INTER_LINEAR)

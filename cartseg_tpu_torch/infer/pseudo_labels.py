@@ -22,6 +22,7 @@ from __future__ import annotations
 import csv
 import dataclasses
 import random
+import time
 from pathlib import Path
 from typing import Optional, Sequence
 
@@ -99,12 +100,27 @@ def _overlay(rgb_u8: np.ndarray, pred01: np.ndarray) -> np.ndarray:
     return out
 
 
+def load_frame(path, size: int, side_padding_ratio: float,
+               device) -> Optional[np.ndarray]:
+    """One frame of the host loop: read for `device` (a JPEG on a card
+    through nvJPEG), letterboxed and resized to size x size by the native
+    loader; None for a file cv2.imread would not read."""
+    rgb = image_io.read_rgb(path, device)
+    if rgb is None:
+        return None
+    return G.letterbox_resize(rgb, size, side_padding_ratio)
+
+
 def generate_pseudo_labels(members: Sequence[EnsembleMember],
                            cfg: PseudoLabelConfig, device="cuda",
                            log=print) -> dict:
     """Run the ensemble over every image under cfg.images_root on
     `device` (the members' device) and write masks, probs, overlays and
-    qc_scores.csv. Returns {"accepted", "buckets", "threshold"}."""
+    qc_scores.csv. Frames are read for `device` (JPEG through nvJPEG on
+    a card) and letterboxed and resized by the native loader
+    (`geometry.letterbox_resize`). Returns {"accepted", "buckets",
+    "threshold", "read_s", "wall_s"}: the host seconds spent reading and
+    letterboxing frames, and the loop's wall seconds."""
     device = torch.device(device)
     root = Path(cfg.images_root)
     out_dir = Path(cfg.out_dir)
@@ -112,6 +128,10 @@ def generate_pseudo_labels(members: Sequence[EnsembleMember],
     out_dir.mkdir(parents=True, exist_ok=True)
     uncertain_dir.mkdir(parents=True, exist_ok=True)
     overlay_dir = Path(cfg.overlay_dir) if cfg.overlay_dir else None
+    if overlay_dir and cfg.save_overlays and not image_io.have_cv2():
+        raise RuntimeError(
+            "overlays (--overlay_dir) draw cv2 contours and need OpenCV "
+            "(cv2), which is not installed; leave --overlay_dir unset")
     if overlay_dir:
         overlay_dir.mkdir(parents=True, exist_ok=True)
 
@@ -137,6 +157,9 @@ def generate_pseudo_labels(members: Sequence[EnsembleMember],
     counter = 0
     bucket_counts: dict = {}
     S = cfg.img_size
+    # host seconds spent reading (decoding) and letterboxing frames
+    read_s = [0.0]
+    t_start = time.perf_counter()
 
     def batches():
         batch, metas = [], []
@@ -144,12 +167,12 @@ def generate_pseudo_labels(members: Sequence[EnsembleMember],
             bucket = p.parent.name
             if bucket_counts.get(bucket, 0) >= cfg.max_per_bucket:
                 continue
-            rgb = image_io.read_rgb(p)
-            if rgb is None:
+            t0 = time.perf_counter()
+            img = load_frame(p, S, cfg.side_padding_ratio, device)
+            read_s[0] += time.perf_counter() - t0
+            if img is None:
                 continue
-            lb = G.letterbox_side_pad(
-                rgb, side_padding_ratio=cfg.side_padding_ratio)
-            batch.append(G.resize_square(lb, S))
+            batch.append(img)
             metas.append((p, bucket))
             if len(batch) == cfg.batch_size:
                 yield np.stack(batch), metas
@@ -204,5 +227,8 @@ def generate_pseudo_labels(members: Sequence[EnsembleMember],
                 if counter >= cfg.max_masks:
                     break
 
+    wall = time.perf_counter() - t_start
+    log(f"Read and letterboxed frames in {read_s[0]:.2f} s of the "
+        f"{wall:.2f} s loop.")
     return {"accepted": counter, "buckets": bucket_counts,
-            "threshold": threshold}
+            "threshold": threshold, "read_s": read_s[0], "wall_s": wall}

@@ -78,8 +78,8 @@ def inputs(dev) -> dict:
         "cc_blobs": torch.from_numpy(blob_masks(rng, (B, S, S), n=8)),
         "cc_mixed": torch.from_numpy(mixed_masks(rng)),
     }
-    frames = np.stack([G.resize_square(G.letterbox_side_pad(
-        frame(rng, FRAME_HW)), S) for _ in range(B)])
+    frames = np.stack([G.letterbox_resize(frame(rng, FRAME_HW), S)
+                       for _ in range(B)])
     weak, strong = canny_weak_strong(rgb_to_gray(
         torch.from_numpy(frames).to(dev)), 50.0, 150.0)
     out = {k: ((lambda m=m.to(dev): cc_batch(m)),

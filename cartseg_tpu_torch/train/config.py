@@ -138,8 +138,6 @@ def check_supported(cfg: TrainConfig) -> None:
     if cfg.trace_dir:
         todo.append("trace_dir: profiler traces of the first epoch "
                     "(ROADMAP.md Queue 1 item 4)")
-    if cfg.pretrained_encoder:
-        todo.append("pretrained_encoder (ROADMAP.md Queue 1 item 3)")
     if cfg.init_checkpoint:
         todo.append("init_checkpoint: an Orbax directory of the JAX "
                     "package; give a .pth as init_torch_checkpoint")

@@ -14,7 +14,7 @@ ends with a threshold sweep on the best checkpoint and writes the
 
 Out of this slice (raise NotImplementedError, train/config.py
 `check_supported`): mixed sources and the curriculum sampler, UNet++,
-remat, profiler traces, pretrained encoders, Orbax init checkpoints.
+remat, profiler traces, Orbax init checkpoints.
 `use_mesh` is accepted and means nothing on one card.
 """
 
@@ -44,6 +44,8 @@ from cartseg_tpu_torch.losses.region import (bce_dice_loss,
                                              bce_dice_per_sample,
                                              focal_dice_loss)
 from cartseg_tpu_torch.models.factory import build_model, param_groups
+from cartseg_tpu_torch.models.pretrained import (load_encoder_state_dict,
+                                                 load_pretrained_encoder)
 from cartseg_tpu_torch.train import checkpoint as ckpt_lib
 from cartseg_tpu_torch.train.config import TrainConfig, check_supported
 from cartseg_tpu_torch.train.optim import (AdamWState, adamw_update,
@@ -140,7 +142,8 @@ class Trainer:
 
     def init_state(self) -> TrainState:
         """The model from a seeded init (the global RNG is forked, not
-        reseeded), or from init_torch_checkpoint, on the device."""
+        reseeded), or from init_torch_checkpoint, then the encoder from
+        pretrained_encoder where given, on the device."""
         cfg = self.cfg
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(cfg.seed)
@@ -149,6 +152,13 @@ class Trainer:
             sd = torch.load(cfg.init_torch_checkpoint, map_location="cpu",
                             weights_only=True)
             model.load_state_dict(sd.get("model_state_dict", sd))
+        if cfg.pretrained_encoder:
+            # encoder_weights="imagenet" from the user's file, after the
+            # init checkpoint, as the JAX engine orders them
+            # (engine.py:158-177); the decoder and head stay as they are
+            load_pretrained_encoder(
+                model, load_encoder_state_dict(cfg.pretrained_encoder),
+                cfg.encoder)
         model = model.to(self.device)
         if self.device.type == "cuda":
             # NHWC storage: the augmented batch already is NHWC, and
@@ -180,8 +190,8 @@ class Trainer:
                 [Path(r) for r in cfg.image_roots], Path(cfg.masks_root),
                 seed=cfg.seed)
         else:
-            # reference trees hold .jpeg frames (read through cv2); the
-            # port's own trees hold .png
+            # reference trees hold .jpeg frames (nvJPEG on a card, cv2
+            # on the CPU); the port's synthetic trees hold .png
             ir, mr = Path(cfg.images_root), Path(cfg.masks_root)
             pairs = gather_pairs(ir, mr) or gather_pairs(ir, mr, "*.png")
         if not pairs:

@@ -5,8 +5,9 @@ JAX workload does (cartseg_tpu/infer/pseudo_labels.py:166-169, :215).
 Without it (the GPU machines this port targets carry neither OpenCV nor
 PIL), a small PNG codec built on stdlib `zlib` takes over: it writes
 8-bit gray and RGB PNGs and reads back non-interlaced 8-bit PNGs
-(gray, gray+alpha, RGB, RGBA) with all five row filter types. JPEG and
-the other formats need cv2 and raise without it.
+(gray, gray+alpha, RGB, RGBA) with all five row filter types. A JPEG
+read for a CUDA device is decoded on the card by nvJPEG (utils/jpeg.py);
+on the CPU, JPEG and the other formats need cv2 and raise without it.
 """
 
 from __future__ import annotations
@@ -33,8 +34,10 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
     return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", crc)
 
 
-def encode_png(image: np.ndarray) -> bytes:
-    """HxW or HxWx3 uint8 (RGB) -> PNG bytes (filter type 0 rows)."""
+def encode_png(image: np.ndarray, row_filter: int = 0) -> bytes:
+    """HxW or HxWx3 uint8 (RGB) -> PNG bytes, every row with filter type
+    `row_filter`: 0 (None) or 2 (Up, which compresses smooth images
+    better and decodes without a loop along the row)."""
     image = np.ascontiguousarray(image)
     if image.dtype != np.uint8:
         raise ValueError(f"encode_png needs uint8, got {image.dtype}")
@@ -44,12 +47,18 @@ def encode_png(image: np.ndarray) -> bytes:
         ctype = 2
     else:
         raise ValueError(f"encode_png takes HxW or HxWx3, got {image.shape}")
+    if row_filter not in (0, 2):
+        raise ValueError(f"row_filter must be 0 or 2, got {row_filter}")
     h, w = image.shape[:2]
     rows = image.reshape(h, -1)
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
+    if row_filter == 2:
+        rows = rows - np.concatenate([np.zeros_like(rows[:1]), rows[:-1]])
+    raw = np.concatenate([np.full((h, 1), row_filter, np.uint8), rows],
+                         axis=1)
     ihdr = struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0)
     return (_PNG_SIG + _chunk(b"IHDR", ihdr)
-            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 9 if row_filter
+                                            else 6))
             + _chunk(b"IEND", b""))
 
 
@@ -126,9 +135,30 @@ def decode_png(data: bytes) -> np.ndarray:
     return pix.reshape(h, w) if ch == 1 else pix.reshape(h, w, ch)
 
 
-def read_rgb(path) -> Optional[np.ndarray]:
-    """HxWx3 uint8 RGB, or None where cv2.imread would give None."""
+def _device_type(device) -> str:
+    return device.type if hasattr(device, "type") else \
+        str(device).split(":")[0]
+
+
+def _card_jpeg(path: Path, device) -> bool:
+    """True where a read goes to nvJPEG: a JPEG file read for a card."""
+    return _device_type(device) == "cuda" and \
+        path.suffix.lower() in (".jpg", ".jpeg")
+
+
+def read_rgb(path, device="cpu") -> Optional[np.ndarray]:
+    """HxWx3 uint8 RGB, or None where cv2.imread would give None (a
+    missing file). For a CUDA `device` a JPEG is decoded on the card by
+    nvJPEG (utils/jpeg.py, EXIF orientation applied as cv2 does); else
+    the file goes through cv2, and without cv2 only PNGs are read (the
+    zlib codec)."""
     path = Path(path)
+    if _card_jpeg(path, device):
+        if not path.exists():
+            return None
+        from cartseg_tpu_torch.utils import jpeg
+
+        return jpeg.read_rgb(path, device)
     if have_cv2():
         import cv2
 
@@ -137,7 +167,8 @@ def read_rgb(path) -> Optional[np.ndarray]:
     if path.suffix.lower() != ".png":
         raise RuntimeError(
             f"reading {path.name} needs OpenCV (cv2), which is not "
-            "installed; without it only PNG inputs are read")
+            "installed; without it only PNG inputs are read (and JPEG "
+            "on a card, through nvJPEG)")
     img = decode_png(path.read_bytes())
     if img.ndim == 2:
         return np.repeat(img[..., None], 3, axis=-1)
@@ -146,11 +177,18 @@ def read_rgb(path) -> Optional[np.ndarray]:
     return np.ascontiguousarray(img[..., :3])
 
 
-def read_gray(path) -> Optional[np.ndarray]:
-    """HxW uint8 (a mask), or None where cv2.imread would give None.
-    Without cv2 only gray (and gray+alpha) PNGs are read: cv2's colour
-    to gray conversion is not reproduced."""
+def read_gray(path, device="cpu") -> Optional[np.ndarray]:
+    """HxW uint8 (a mask), or None where cv2.imread would give None. For
+    a CUDA `device` a JPEG is decoded on the card to its luma plane, as
+    IMREAD_GRAYSCALE reads it. Without cv2, PNGs must be gray (or gray +
+    alpha): cv2's colour to gray conversion is not reproduced."""
     path = Path(path)
+    if _card_jpeg(path, device):
+        if not path.exists():
+            return None
+        from cartseg_tpu_torch.utils import jpeg
+
+        return jpeg.read_gray(path, device)
     if have_cv2():
         import cv2
 
@@ -158,7 +196,8 @@ def read_gray(path) -> Optional[np.ndarray]:
     if path.suffix.lower() != ".png":
         raise RuntimeError(
             f"reading {path.name} needs OpenCV (cv2), which is not "
-            "installed; without it only PNG masks are read")
+            "installed; without it only PNG masks are read (and JPEG on "
+            "a card, through nvJPEG)")
     img = decode_png(path.read_bytes())
     if img.ndim == 3 and img.shape[2] == 2:
         return np.ascontiguousarray(img[..., 0])

@@ -126,6 +126,27 @@ Phases, in order; any failure raises and the exit code is non-zero:
         history, .pth, sidecar and .last.pth, the .pth loading into the
         pseudo-labeller; edt launched at least 4 times a step, no other
         kernel;
+     h. camera JPEGs with cv2 and PIL made unimportable for the phase's
+        length (`refuse_modules`): nvJPEG's decode (utils/jpeg.py) of
+        every fixture of cartseg_tpu_torch/tools/jpeg_fixtures/ (1280x720
+        4:2:0 at quality 90, 4:4:4, progressive, EXIF Orientation 6,
+        grayscale; the luma of one) against cv2's stored decode, max and
+        mean |d| printed, the shapes equal (the rotated one 720 wide),
+        failing above a mean of 1.0 LSB; then on a 5 x 12 JPEG tree cycled
+        from the fixtures, with their letterboxed masks,
+        workloads/train_with_pretrained at its CONFIG (efficientnet-b0,
+        512^2, bs6, bf16, train_512, session_sorted, prf1, encoder frozen
+        8 epochs) for --epochs 2 from a seeded timm-named encoder .pth
+        that carries the classifier keys: the artifacts, and every
+        encoder parameter in model.pth equal to the file's bit for bit;
+        train_with_focal_dice, train_with_focal_dice_unfrozen (lr_encoder
+        and lr_head 0.1x and 3x lr_decoder), train_pseudo (two image
+        roots) and train_bce_dice_abl_unlettered (unlettered masks; edt,
+        lsr_fwd and lsr_bwd launched) at their CONFIG for --epochs 1,
+        each CSV in its schema; create_pseudo_labels on 64 1280x720
+        JPEGs at --batch_size 64 --img_size 512 with that model.pth as
+        the three members: every mask, prob file and CSV row, cc, reach
+        and median launched;
   5. timing with CUDA events: the pseudo-label program per bs64 batch;
      CC on the path's masks, cart-like blobs and the mixed masks, and
      reach on the path's Canny maps, beside their bounds, with the CUDA
@@ -187,7 +208,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
      pairs (medians and spread; the mish forward's line names the form
      the kernel computes, MISH_FWD_FORM); the boundary workload's train step
      against the same step with BCE+Dice alone, its busy share and its
-     4 edt launches.
+     4 edt launches; with cv2 and PIL refused, the nvJPEG decode rate of
+     a 1280x720 frame on one thread and on the loader's 4, the training
+     loader's wall for an epoch of train_with_pretrained's CONFIG on the
+     JPEG tree against its train steps' time, one item's read,
+     letterbox, mask read and mask resize on one thread, and the
+     pseudo-label batch of 64 JPEGs against the read and letterbox of
+     its frames.
 The line before the last holds the kernels' JSON record, the one before
 it the card's name and power limit, and the last line
 {"ok": true, "device": {...}}.
@@ -740,8 +767,8 @@ def load_frames(root: Path) -> np.ndarray:
     from cartseg_tpu_torch.utils import image_io
 
     paths = sorted(root.rglob("*.png"))[:B]
-    return np.stack([G.resize_square(G.letterbox_side_pad(
-        image_io.read_rgb(p)), S) for p in paths])
+    return np.stack([G.letterbox_resize(image_io.read_rgb(p), S)
+                     for p in paths])
 
 
 def make_members(ckpt_dir: Path):
@@ -893,9 +920,7 @@ def phase_compare(frames: np.ndarray, dev) -> dict:
 
 
 def phase_workload(tmp: Path, dev) -> tuple:
-    from cartseg_tpu_torch.infer.pseudo_labels import QC_HEADER
     from cartseg_tpu_torch.ops.cuda import build
-    from cartseg_tpu_torch.utils import image_io
     from cartseg_tpu_torch.workloads import create_pseudo_labels as cli
 
     images = tmp / "images"
@@ -918,7 +943,15 @@ def phase_workload(tmp: Path, dev) -> tuple:
             raise AssertionError(f"kernel {k} was not launched by the "
                                  "workload")
 
-    frames = sorted(images.rglob("*.png"))
+    check_pseudo_outputs(images, out_dir, sorted(images.rglob("*.png")))
+    return launches, ckpts
+
+
+def check_pseudo_outputs(images: Path, out_dir: Path, frames: list) -> None:
+    """Every frame's mask, prob file and CSV row, well formed."""
+    from cartseg_tpu_torch.infer.pseudo_labels import QC_HEADER
+    from cartseg_tpu_torch.utils import image_io
+
     with open(out_dir / "qc_scores.csv") as f:
         rows = list(csv.reader(f))
     if rows[0] != QC_HEADER or len(rows) != len(frames) + 1:
@@ -939,7 +972,6 @@ def phase_workload(tmp: Path, dev) -> tuple:
             raise AssertionError(f"bad probs for {rel}")
     log(f"  workload outputs: {len(frames)} masks, prob files and CSV "
         "rows present and well formed")
-    return launches, ckpts
 
 
 def phase_reference(ckpts, frames: np.ndarray, dev) -> None:
@@ -3226,6 +3258,407 @@ def phase_boundary_timing(dev, card: str) -> dict:
     return {"step_ms": step_ms, "bce_ms": bce_ms, "busy": busy}
 
 
+# ------------------------------------------- camera JPEGs without OpenCV
+
+FIXTURES = Path(__file__).resolve().parent / "cartseg_tpu_torch" / \
+    "tools" / "jpeg_fixtures"
+# nvJPEG against cv2's stored decode: the mean |d| of a fixture, in LSB
+JPEG_MEAN_TOL = 1.0
+# the fixtures a training tree cycles through: those whose letterboxed
+# mask fits them (not the EXIF-rotated frame)
+TRAIN_JPEGS = tuple(f"frame_{k}" for k in range(8)) + (
+    "frame_0_444", "frame_1_progressive", "frame_3_gray")
+# the four workloads phase 4h runs at their CONFIG for one epoch, with
+# their CSV schemas
+CONFIG_WORKLOADS = (("train_with_focal_dice", "prf1"),
+                    ("train_with_focal_dice_unfrozen", "prf1"),
+                    ("train_pseudo", "basic"),
+                    ("train_bce_dice_abl_unlettered", "abl"))
+# decodes a rate is taken over, and the loader's threads
+JPEG_RATE_N, LOADER_THREADS = 200, 4
+
+
+class refuse_modules:
+    """A context in which `import cv2` (and PIL) fails and
+    importlib.util.find_spec finds nothing, as on a machine without
+    them: each name maps to None in sys.modules for the context's
+    length."""
+
+    def __init__(self, *names):
+        self.names = names
+
+    def __enter__(self):
+        self.saved = {k: v for k, v in sys.modules.items()
+                      if k.split(".")[0] in self.names}
+        for k in self.saved:
+            del sys.modules[k]
+        for n in self.names:
+            sys.modules[n] = None
+        import importlib.util
+
+        for n in self.names:
+            if importlib.util.find_spec(n) is not None:
+                raise AssertionError(f"{n} is still importable")
+        return self
+
+    def __exit__(self, *exc):
+        for n in self.names:
+            sys.modules.pop(n, None)
+        sys.modules.update(self.saved)
+        return False
+
+
+def jpeg_against_cv2(dev) -> dict:
+    """nvJPEG's decode of every fixture against cv2's stored decode: the
+    shape (the EXIF-rotated frame's too), max and mean |d|; fails above a
+    mean of JPEG_MEAN_TOL."""
+    from cartseg_tpu_torch.utils import image_io
+
+    worst = 0.0
+    names = sorted(p.name for p in FIXTURES.glob("*.jpeg"))
+    pairs = [(n, False, n.replace(".jpeg", ".cv2.png")) for n in names]
+    pairs.append(("frame_0.jpeg", True, "frame_0.cv2gray.png"))
+    for name, gray, stored in pairs:
+        read = image_io.read_gray if gray else image_io.read_rgb
+        got = read(FIXTURES / name, dev)
+        want = image_io.decode_png((FIXTURES / stored).read_bytes())
+        if got.shape != want.shape:
+            raise AssertionError(f"{name}: nvJPEG shape {got.shape}, cv2 "
+                                 f"{want.shape}")
+        d = np.abs(got.astype(np.int16) - want.astype(np.int16))
+        log(f"  nvJPEG {name}{' (luma)' if gray else ''} {got.shape}: max "
+            f"|d| {d.max()}, mean |d| {d.mean():.4f} LSB against cv2")
+        if d.mean() > JPEG_MEAN_TOL:
+            raise AssertionError(f"{name}: mean |d| {d.mean():.4f} > "
+                                 f"{JPEG_MEAN_TOL}")
+        worst = max(worst, float(d.mean()))
+    return {"worst_mean": worst, "files": len(pairs)}
+
+
+def make_jpeg_tree(tmp: Path) -> tuple:
+    """TRAIN_SESSIONS x TRAIN_PER_SESSION camera JPEGs cycled from the
+    fixtures, with their letterboxed masks (side padding 0.1), and the
+    same masks unlettered (no side padding) for the unlettered ABL run."""
+    from cartseg_tpu_torch import geometry as G
+    from cartseg_tpu_torch.utils import image_io
+
+    root = tmp / "jpeg_train"
+    masks = {}
+    for stem in TRAIN_JPEGS:
+        k = stem.split("_")[1]
+        lettered = image_io.decode_png(
+            (FIXTURES / f"frame_{k}.mask.png").read_bytes())
+        x0, y0, x1, y1 = G.LetterboxSpec(1280, 720).content_box()
+        plain = G.letterbox_side_pad(lettered[y0:y1, x0:x1],
+                                     side_padding_ratio=0.0)
+        masks[stem] = (image_io.encode_png(lettered),
+                       image_io.encode_png(plain))
+    i = 0
+    for s in range(TRAIN_SESSIONS):
+        sess = f"session_{s:03d}"
+        for sub in ("images", "masks", "masks_unlettered"):
+            (root / sub / sess).mkdir(parents=True, exist_ok=True)
+        for _ in range(TRAIN_PER_SESSION):
+            stem = TRAIN_JPEGS[i % len(TRAIN_JPEGS)]
+            name = f"img_{i:03d}"
+            (root / "images" / sess / f"{name}.jpeg").write_bytes(
+                (FIXTURES / f"{stem}.jpeg").read_bytes())
+            (root / "masks" / sess / f"{name}.png").write_bytes(
+                masks[stem][0])
+            (root / "masks_unlettered" / sess / f"{name}.png").write_bytes(
+                masks[stem][1])
+            i += 1
+    log(f"  JPEG training tree: {TRAIN_SESSIONS}x{TRAIN_PER_SESSION} "
+        f"1280x720 JPEGs ({len(TRAIN_JPEGS)} fixtures cycled) with masks")
+    return root / "images", root / "masks", root / "masks_unlettered"
+
+
+def imagenet_encoder_file(path: Path) -> dict:
+    """A seeded timm-named efficientnet_b0 state dict as an ImageNet
+    checkpoint holds it: the encoder (BN statistics drawn away from 0/1),
+    the BN counters and the classifier (conv_head, bn2, classifier)."""
+    from cartseg_tpu_torch.models import build_model
+
+    torch.manual_seed(SEED + 16)
+    enc = build_model("efficientnet-b0").encoder
+    g = torch.Generator().manual_seed(SEED + 17)
+    sd = {}
+    for k, v in enc.state_dict().items():
+        if k.endswith("running_mean"):
+            v = 0.1 * torch.randn(v.shape, generator=g)
+        elif k.endswith("running_var"):
+            v = 0.75 + 0.5 * torch.rand(v.shape, generator=g)
+        sd[k] = v.clone()
+    for k, shape in (("conv_head.weight", (1280, 320, 1, 1)),
+                     ("bn2.weight", (1280,)), ("bn2.bias", (1280,)),
+                     ("bn2.running_mean", (1280,)),
+                     ("bn2.running_var", (1280,)),
+                     ("classifier.weight", (1000, 1280)),
+                     ("classifier.bias", (1000,))):
+        sd[k] = torch.randn(shape, generator=g)
+    sd["bn2.num_batches_tracked"] = torch.tensor(0)
+    torch.save(sd, path)
+    return sd
+
+
+def check_train_run(out: Path, schema: list, epochs: int) -> list:
+    """The CSV (header, one finite row an epoch), history, .pth, sidecar
+    and .last.pth of a run; returns the CSV rows."""
+    with open(out / "training_metrics.csv") as f:
+        rows = list(csv.reader(f))
+    if rows[0] != schema or len(rows) != epochs + 1:
+        raise AssertionError(f"{out.name}: training_metrics.csv header "
+                             f"{rows[0]}, {len(rows) - 1} rows")
+    if not all(np.isfinite(float(v)) for r in rows[1:] for v in r):
+        raise AssertionError(f"non-finite values in the CSV: {rows[1:]}")
+    for f in ("history.json", "model.pth", "model.threshold.json",
+              "model.last.pth"):
+        if not (out / f).exists():
+            raise AssertionError(f"{out.name}: {f} was not written")
+    return rows
+
+
+def phase_pretrained_workload(tmp: Path, ir: Path, mr: Path) -> dict:
+    """workloads/train_with_pretrained through its CLI at its CONFIG
+    (efficientnet-b0, 512^2, bs6, bf16, train_512, session_sorted, prf1,
+    encoder frozen 8 epochs) for 2 epochs on the JPEG tree, from a seeded
+    timm-named encoder file with its classifier keys: the artifacts, and
+    every encoder parameter in model.pth equal to the file's."""
+    from cartseg_tpu_torch.models import build_model
+    from cartseg_tpu_torch.train.engine import SCHEMAS
+    from cartseg_tpu_torch.workloads import train_with_pretrained as cli
+
+    enc_file = tmp / "efficientnet_b0_imagenet.pth"
+    sd = imagenet_encoder_file(enc_file)
+    out = tmp / "run_pretrained"
+    t0 = time.perf_counter()
+    result = cli.main(["--images_root", str(ir), "--masks_root", str(mr),
+                       "--out_dir", str(out), "--epochs", "2",
+                       "--device", "cuda", "--pretrained_encoder",
+                       str(enc_file)], log=lambda m: log(f"    {m}"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = check_train_run(out, SCHEMAS["prf1"], 2)
+    if any(float(r[1]) != 0.0 for r in rows[1:]):
+        raise AssertionError(f"the encoder was not frozen: {rows[1:]}")
+    got = torch.load(out / "model.pth", map_location="cpu",
+                     weights_only=True)["model_state_dict"]
+    params = [n for n, _ in build_model("efficientnet-b0").named_parameters()
+              if n.startswith("encoder.")]
+    convs = [n for n in params if got[n].ndim == 4]
+    for n in params:
+        if not torch.equal(got[n], sd[n[len("encoder."):]]):
+            raise AssertionError(f"{n} in model.pth differs from the "
+                                 "encoder file")
+    log(f"  train_with_pretrained: {result['state'].step} steps, 2 epochs "
+        f"in {wall:.1f} s wall (init, nvJPEG decode, val and the sweep "
+        f"included); prf1 CSV {rows[1:]}; all {len(params)} encoder "
+        f"parameters ({len(convs)} conv weights) in model.pth equal the "
+        "file's bit for bit (frozen)")
+    return {"pth": out / "model.pth", "steps": result["state"].step}
+
+
+def phase_config_workloads(tmp: Path, ir: Path, mr: Path,
+                           mr_unlettered: Path) -> dict:
+    """The four workloads that need only their CONFIG, through their CLI
+    for 1 epoch on the JPEG tree: each CSV in its schema; the unfrozen
+    run's lr_encoder / lr_head at 0.1x / 3x lr_decoder; train_pseudo on
+    two image roots; the unlettered ABL run on the unlettered masks,
+    launching edt, lsr_fwd and lsr_bwd (counts set to 0 just before)."""
+    import importlib
+    import shutil
+
+    from cartseg_tpu_torch.ops.cuda import build
+    from cartseg_tpu_torch.train.engine import SCHEMAS
+
+    roots = [tmp / "jpeg_root_a", tmp / "jpeg_root_b"]
+    for i, sess in enumerate(sorted(ir.iterdir())):
+        shutil.copytree(sess, roots[i % 2] / sess.name)
+    runs = {}
+    for name, schema in CONFIG_WORKLOADS:
+        cli = importlib.import_module(f"cartseg_tpu_torch.workloads.{name}")
+        data = (["--image_roots", ",".join(map(str, roots)),
+                 "--masks_root", str(mr)] if name == "train_pseudo" else
+                ["--images_root", str(ir), "--masks_root",
+                 str(mr_unlettered if name.endswith("unlettered") else mr)])
+        out = tmp / f"run_{name}"
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = cli.main(data + ["--out_dir", str(out), "--epochs", "1",
+                                  "--device", "cuda"],
+                          log=lambda m: log(f"    {m}"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in build.LAUNCHES.items() if v}
+        rows = check_train_run(out, SCHEMAS[schema], 1)
+        row = dict(zip(rows[0], map(float, rows[1])))
+        if name == "train_with_focal_dice_unfrozen" and (
+                row["phase"] != 1
+                or abs(row["lr_encoder"] - 0.1 * row["lr_decoder"]) > 1e-12
+                or abs(row["lr_head"] - 3.0 * row["lr_decoder"]) > 1e-12):
+            raise AssertionError(f"{name}: LR tiers {row}")
+        if name.endswith("unlettered") and \
+                not all(launches.get(k, 0) > 0 for k in TRAIN_KERNELS):
+            raise AssertionError(f"{name}: launches {launches}")
+        log(f"  {name}: {result['state'].step} steps, 1 epoch in "
+            f"{wall:.1f} s wall; {schema} CSV {rows[1]}; launches "
+            f"{launches}")
+        runs[name] = {"launches": launches, "row": row}
+    build.reset_launch_counts()
+    return runs
+
+
+def phase_pseudo_jpeg(tmp: Path, pth: Path) -> dict:
+    """workloads/create_pseudo_labels on B camera-size JPEGs (the
+    fixtures cycled over 2 sessions) at --batch_size B --img_size S,
+    with the pretrained run's model.pth as the three members: every
+    mask, prob file and CSV row; cc, reach and median launched."""
+    from cartseg_tpu_torch.ops.cuda import build
+    from cartseg_tpu_torch.workloads import create_pseudo_labels as cli
+
+    images = tmp / "jpeg_frames"
+    names = sorted(p.name for p in FIXTURES.glob("*.jpeg"))
+    for i in range(B):
+        d = images / f"session_{i % 2:03d}"
+        d.mkdir(parents=True, exist_ok=True)
+        (d / f"cam_{i:03d}.jpeg").write_bytes(
+            (FIXTURES / names[i % len(names)]).read_bytes())
+    members = ",".join([str(pth)] * 3)
+    out_dir = tmp / "pseudo_jpeg"
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = cli.main(["--images_root", str(images), "--out_dir",
+                       str(out_dir), "--checkpoints", members,
+                       "--batch_size", str(B), "--img_size", str(S),
+                       "--max_per_bucket", "1000", "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    for k in PSEUDO_KERNELS:
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the JPEG "
+                                 "frames")
+    log(f"  pseudo-labels on {B} 1280x720 JPEGs: {result['accepted']} "
+        f"accepted, {wall:.1f} s wall (members' load included); the loop "
+        f"{result['wall_s']:.3f} s, of it reading (nvJPEG) and letterboxing "
+        f"{result['read_s']:.3f} s; launches {launches}")
+    check_pseudo_outputs(images, out_dir, sorted(images.rglob("*.jpeg")))
+    build.reset_launch_counts()
+    return {"images": images, "read_s": result["read_s"],
+            "wall_s": result["wall_s"]}
+
+
+def phase_jpeg_timing(dev, ir: Path, mr: Path, pth: Path,
+                      pseudo: dict, card: str) -> None:
+    """The data layer's times: the nvJPEG decode rate of a 1280x720 frame
+    (one thread, and LOADER_THREADS threads as the loader runs them),
+    the training loader's wall for one epoch against the train steps'
+    device time, and the pseudo-label batch against its frames' read and
+    letterbox."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from cartseg_tpu_torch.data.pipeline import Loader
+    from cartseg_tpu_torch.infer.engine import (load_member,
+                                                pseudo_label_program)
+    from cartseg_tpu_torch.infer.pseudo_labels import (IMAGENET_MEAN,
+                                                       IMAGENET_STD,
+                                                       load_frame)
+    from cartseg_tpu_torch.train.engine import Trainer, epoch_order
+    from cartseg_tpu_torch.utils import image_io
+    from cartseg_tpu_torch.workloads import train_with_pretrained as tw
+
+    frame = FIXTURES / "frame_0.jpeg"
+    for _ in range(5):
+        image_io.read_rgb(frame, dev)
+    t0 = time.perf_counter()
+    for _ in range(JPEG_RATE_N):
+        image_io.read_rgb(frame, dev)
+    one = JPEG_RATE_N / (time.perf_counter() - t0)
+    with ThreadPoolExecutor(LOADER_THREADS) as pool:
+        list(pool.map(lambda _: image_io.read_rgb(frame, dev),
+                      range(4 * LOADER_THREADS)))
+        t0 = time.perf_counter()
+        list(pool.map(lambda _: image_io.read_rgb(frame, dev),
+                      range(JPEG_RATE_N)))
+        many = JPEG_RATE_N / (time.perf_counter() - t0)
+    log(f"  nvJPEG decode of a 1280x720 4:2:0 frame to the host, EXIF "
+        f"read: {one:.1f} frames/s on one thread, {many:.1f} frames/s on "
+        f"{LOADER_THREADS} threads ({card})")
+
+    cfg = tw.CONFIG.with_overrides(images_root=str(ir), masks_root=str(mr),
+                                   device="cuda", out_dir=str(ir.parent))
+    tr = Trainer(cfg)
+    train_ds, _ = tr.build_datasets()
+    loader = Loader(train_ds, cfg.batch_size, device=dev,
+                    num_threads=cfg.num_threads)
+    order = epoch_order(cfg.seed, 0, len(train_ds))
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batches = list(loader(order))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    st = tr.init_state()
+    gids = tr.group_ids(st)
+    imgs, masks = batches[0]
+    ones = torch.ones((imgs.shape[0],), device=dev)
+
+    def step():
+        tr.train_step(st, imgs, masks, ones, [1e-4] * 3, [0.0, 1.0, 1.0],
+                      gids)
+
+    step_ms = cuda_ms(step, 10)
+    n = len(batches)
+    # one item's parts on one thread: the frame's read (nvJPEG), its
+    # native letterbox + resize, the mask's read (PNG codec) + resize
+    from cartseg_tpu_torch import native
+    from cartseg_tpu_torch.data.dataset import resize_nearest
+
+    parts = np.zeros(4)
+    items = train_ds.pairs[:2 * cfg.batch_size]
+    for rec in items:
+        t = [time.perf_counter()]
+        img = image_io.read_rgb(rec.image, dev)
+        t.append(time.perf_counter())
+        native.letterbox_resize(img, cfg.img_size, cfg.side_padding_ratio)
+        t.append(time.perf_counter())
+        m = image_io.read_gray(rec.mask, dev)
+        t.append(time.perf_counter())
+        resize_nearest(m, cfg.img_size)
+        t.append(time.perf_counter())
+        parts += np.diff(t)
+    parts *= 1e3 / len(items)
+    log(f"  a training item on one thread: frame read {parts[0]:.2f} ms, "
+        f"letterbox + resize {parts[1]:.2f} ms, mask read (PNG "
+        f"{m.shape[1]}x{m.shape[0]}) {parts[2]:.2f} ms, mask resize "
+        f"{parts[3]:.2f} ms: {parts.sum():.2f} ms, "
+        f"{parts.sum() * cfg.batch_size:.1f} ms a batch ({card})")
+    log(f"  training loader (train_with_pretrained's CONFIG, {n} batches "
+        f"of {cfg.batch_size} 1280x720 JPEGs, {cfg.num_threads} threads: "
+        f"nvJPEG, native letterbox + resize to 512^2, masks, H2D) "
+        f"{walls[0]:.3f} / {walls[1]:.3f} s an epoch, "
+        f"{walls[1] / n * 1e3:.2f} ms a batch; the frozen-encoder train "
+        f"step {step_ms:.3f} ms (CUDA events, device-resident batch), "
+        f"{step_ms * n / 1e3:.3f} s an epoch ({card})")
+
+    member = load_member(pth, device=dev)
+    program = pseudo_label_program([member] * 3, IMAGENET_MEAN, IMAGENET_STD,
+                                   int(S * S * 0.001))
+    paths = sorted(pseudo["images"].rglob("*.jpeg"))[:B]
+    t0 = time.perf_counter()
+    batch = np.stack([load_frame(p, S, 0.1, dev) for p in paths])
+    read_ms = (time.perf_counter() - t0) * 1e3
+    x = torch.from_numpy(batch).to(dev)
+    prog_ms = cuda_ms(lambda: program(x, 0.5), 3)
+    log(f"  pseudo-label batch of {B} 1280x720 JPEGs: reading (nvJPEG) and "
+        f"letterboxing {read_ms:.1f} ms on one thread, the program "
+        f"{prog_ms:.3f} ms (CUDA events): the read is "
+        f"{read_ms / (read_ms + prog_ms):.3f} of the two; in the workload's "
+        f"loop {pseudo['read_s']:.3f} of {pseudo['wall_s']:.3f} s "
+        f"({card})")
+
+
 def main() -> int:
     from cartseg_tpu_torch.device import require_cuda
 
@@ -3313,6 +3746,16 @@ def main() -> int:
             "(train_with_boundary_loss)")
         phase_boundary_workload(tmp, dev, ir, mr)
 
+        log("phase 4h: camera JPEGs with cv2 and PIL refused: nvJPEG, the "
+            "native loader, the pretrained-encoder and CONFIG workloads, "
+            "pseudo-labels")
+        with refuse_modules("cv2", "PIL"):
+            jpeg_against_cv2(dev)
+            jir, jmr, jmr_plain = make_jpeg_tree(tmp)
+            pretrained = phase_pretrained_workload(tmp, jir, jmr)
+            phase_config_workloads(tmp, jir, jmr, jmr_plain)
+            pseudo_jpeg = phase_pseudo_jpeg(tmp, pretrained["pth"])
+
         log("phase 5: timing")
         timing = phase_timing(ckpts, frames, dev, card)
         train_timing = phase_train_timing(dev, card, hist)
@@ -3321,6 +3764,9 @@ def main() -> int:
         bce_timing = phase_bce_timing(dev, card)
         zoo_timing = phase_zoo_timing(dev, card)
         phase_boundary_timing(dev, card)
+        with refuse_modules("cv2", "PIL"):
+            phase_jpeg_timing(dev, jir, jmr, pretrained["pth"], pseudo_jpeg,
+                              card)
 
     launches.update({k: train_launches[k] for k in TRAIN_KERNELS})
     launches.update({k: sam_launches[k] for k in SAM_KERNELS})

@@ -35,18 +35,23 @@ def test_letterbox_bit_equal_to_jax_package(w, h):
 
 
 def test_400x512_frame_letterboxes_to_512_without_resize():
-    img = np.zeros((512, 400, 3), np.uint8)
+    img = np.random.default_rng(2).integers(0, 256, (512, 400, 3), np.uint8)
     lb = TG.letterbox_side_pad(img)
     assert lb.shape == (512, 512, 3)
-    assert TG.resize_square(lb, 512) is lb
+    np.testing.assert_array_equal(TG.letterbox_resize(img, 512), lb)
 
 
 def test_resize_matches_cv2_linear():
+    """The native letterbox + resize equals letterbox_side_pad + cv2
+    INTER_LINEAR where the letterbox is an integer multiple of the output
+    (here 192 -> 64; other ratios: tests/test_torch_native.py)."""
     r = np.random.default_rng(3)
-    lb = TG.letterbox_side_pad(r.integers(0, 255, (48, 64, 3), np.uint8))
+    img = r.integers(0, 255, (90, 160, 3), np.uint8)
+    lb = TG.letterbox_side_pad(img)
+    assert lb.shape == (192, 192, 3)
     np.testing.assert_array_equal(
-        TG.resize_square(lb, 32),
-        cv2.resize(lb, (32, 32), interpolation=cv2.INTER_LINEAR))
+        TG.letterbox_resize(img, 64),
+        cv2.resize(lb, (64, 64), interpolation=cv2.INTER_LINEAR))
 
 
 @pytest.mark.parametrize("shape", [(17, 23), (17, 23, 3), (1, 1), (64, 40, 3)])

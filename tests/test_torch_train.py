@@ -55,6 +55,7 @@ from cartseg_tpu_torch.train.engine import epoch_order
 from cartseg_tpu_torch.train.optim import AdamWState
 from cartseg_tpu_torch.train.optim import adamw_update as t_adamw
 from cartseg_tpu_torch.workloads import train_bce_dice_abl as t_workload
+from cartseg_tpu_torch.train.engine import SCHEMAS
 from torch_port_helpers import (jax_effnet_variables,  # noqa: F401
                                 jax_train_state_to_port,
                                 load_jax_state_into_port, one_torch_thread,
@@ -443,7 +444,10 @@ def test_dataset_items_match_jax(jax_tree):
     ir, mr = jax_tree
     pairs_j = JP.gather_pairs_multiroot([ir], mr)
     pairs_t = TP.gather_pairs_multiroot([ir], mr)
-    dj = JDataset(pairs_j[:3], (64, 64), use_native=False)
+    # the JAX dataset's default: its native letterbox + resize, which the
+    # port's dataset takes too (cv2's resize differs by 1 LSB in places)
+    dj = JDataset(pairs_j[:3], (64, 64))
+    assert dj._native is not None
     dt = TDataset(pairs_t[:3], (64, 64))
     for i in range(3):
         (ji, jmask), (ti, tmask) = dj[i], dt[i]
@@ -548,8 +552,8 @@ def test_cuda_is_refused_without_a_card(png_pair_tree, tmp_path):
 
 @pytest.mark.parametrize("field,value", [
     ("sources_json", "s.json"), ("decoder", "unetpp"), ("remat", "true"),
-    ("trace_dir", "t"), ("pretrained_encoder", "e.pth"),
-    ("encoder", "classic"), ("init_checkpoint", "orbax_dir")])
+    ("trace_dir", "t"), ("encoder", "classic"),
+    ("init_checkpoint", "orbax_dir")])
 def test_out_of_scope_settings_raise(field, value, tmp_path):
     cfg = t_overrides(t_workload.CONFIG, [f"--{field}", value, "--device",
                                           "cpu"])
@@ -560,3 +564,72 @@ def test_out_of_scope_settings_raise(field, value, tmp_path):
 def test_use_mesh_default_is_accepted():
     assert TConfig().use_mesh is True
     TTrainer(TConfig(encoder="efficientnet-b0", device="cpu"))
+
+
+# ------------------------------------ the workloads that need only CONFIG
+
+NEW_WORKLOADS = {
+    "train_with_pretrained": "prf1",
+    "train_with_focal_dice": "prf1",
+    "train_with_focal_dice_unfrozen": "prf1",
+    "train_pseudo": "basic",
+    "train_bce_dice_abl_unlettered": "abl",
+}
+
+
+def _workloads(name):
+    import importlib
+
+    return (importlib.import_module(f"cartseg_tpu.workloads.{name}"),
+            importlib.import_module(f"cartseg_tpu_torch.workloads.{name}"))
+
+
+@pytest.mark.parametrize("name", list(NEW_WORKLOADS))
+def test_new_workload_config_literal_equals_jax(name):
+    j_mod, t_mod = _workloads(name)
+    j, t = _fields(j_mod.CONFIG), _fields(t_mod.CONFIG)
+    assert set(t) - set(j) == {"device"} and t["device"] == "cuda"
+    for k in j:
+        assert _plain(t[k]) == _plain(j[k]), k
+    assert t_mod.CONFIG.metrics_schema == NEW_WORKLOADS[name]
+
+
+@pytest.mark.parametrize("name", list(NEW_WORKLOADS))
+def test_new_workload_cli_writes_its_artifacts(name, png_pair_tree,
+                                               tmp_path):
+    """Each new CLI at 64^2 for 1 epoch on the CPU: the CSV of its
+    schema with one finite row, history, .pth, sidecar and .last.pth.
+    train_pseudo reads two image roots against one mask root."""
+    import shutil
+
+    ir, mr = png_pair_tree
+    if name == "train_pseudo":
+        roots = [tmp_path / "root_a", tmp_path / "root_b"]
+        for i, sess in enumerate(sorted(p for p in ir.iterdir())):
+            shutil.copytree(sess, roots[i // 2] / sess.name)
+        data = ["--image_roots", ",".join(map(str, roots))]
+    else:
+        data = ["--images_root", str(ir)]
+    out = tmp_path / "run"
+    _, t_mod = _workloads(name)
+    res = t_mod.main(data + [
+        "--masks_root", str(mr), "--out_dir", str(out), "--device", "cpu",
+        "--img_size", str(HW), "--batch_size", str(BS), "--epochs", "1",
+        "--num_threads", "2"], log=lambda *a: None)
+    assert np.isfinite(res["best_val_dice"])
+    with open(out / "training_metrics.csv") as f:
+        rows = list(csv.reader(f))
+    assert rows[0] == SCHEMAS[NEW_WORKLOADS[name]] and len(rows) == 2
+    assert all(np.isfinite(float(x)) for x in rows[1])
+    for f in ("history.json", "model.pth", "model.threshold.json",
+              "model.last.pth"):
+        assert (out / f).exists(), f
+    if name == "train_with_focal_dice_unfrozen":
+        row = dict(zip(rows[0], map(float, rows[1])))
+        assert row["phase"] == 1
+        assert row["lr_encoder"] == pytest.approx(0.1 * row["lr_decoder"])
+        assert row["lr_head"] == pytest.approx(3.0 * row["lr_decoder"])
+    if name == "train_pseudo":
+        hist = json.loads((out / "history.json").read_text())
+        assert [h["epoch"] for h in hist] == [1]
+
