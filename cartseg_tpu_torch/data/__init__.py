@@ -1,3 +1,3 @@
-"""Data: file pairing and splits, the host dataset, the prefetching
-loader and the on-device augmentation (counterpart of
-cartseg_tpu/data)."""
+"""Data: file pairing and splits, the host dataset, mixed-source
+sampling, the prefetching loader and the on-device augmentation
+(counterpart of cartseg_tpu/data)."""

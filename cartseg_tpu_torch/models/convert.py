@@ -1,7 +1,9 @@
 """JAX variables -> the port's state dicts, without importing JAX: the
-UNet's with an efficientnet-b0, resnet34 or resnet18 encoder (the
-inverse of cartseg_tpu/models/torch_import.py:249-343) and
-SAM's (`jax_sam_to_state_dict`, the inverse of convert_torch_sam).
+UNet's and UNet++'s (with or without deep supervision) with an
+efficientnet-b0, resnet34 or resnet18 encoder (the UNet's the inverse of
+cartseg_tpu/models/torch_import.py:249-343), the classic UNet's (the
+inverse of `import_classic_unet`, :230-246) and SAM's
+(`jax_sam_to_state_dict`, the inverse of convert_torch_sam).
 
 `variables_np` is the JAX package's {"params", "batch_stats"} tree with
 numpy leaves (e.g. `jax.tree_util.tree_map(np.asarray, variables)`).
@@ -9,11 +11,15 @@ Layout rules:
 
   flax conv kernel [H,W,I,O] -> torch Conv2d weight [O,I,H,W]
     (a depthwise [H,W,1,C] becomes [C,1,H,W])
+  flax ConvTranspose kernel [H,W,I,O] (the classic UNet's `up{i}`) ->
+    torch ConvTranspose2d weight [I,O,H,W], flipped in space
   BN scale/bias -> weight/bias; batch_stats mean/var ->
     running_mean/running_var
 
-The result loads into `build_model(encoder)` with plain
-`load_state_dict` (BN's num_batches_tracked is filled in by torch).
+The result loads into `build_model(encoder, decoder=...)` with plain
+`load_state_dict` (BN's num_batches_tracked is filled in by torch). The
+decoder needs no argument: UNet++'s variables name their nodes
+(`decoder/x_{i}_{j}`, `decoder/final`, `aux_head_{j}`).
 """
 
 from __future__ import annotations
@@ -80,20 +86,51 @@ def _resnet_key(mod, leaf: str) -> str:
     return f"encoder.{layer}.{blk}.{tname}.weight"
 
 
+def _conv_leaf(leaf: str) -> str:
+    return "bias" if leaf == "bias" else "weight"
+
+
+def _decoder_key(mod, leaf: str) -> str:
+    """decoder/block{i}/{conv,bn}{1,2} (UNet, smp names) or
+    decoder/{x_i_j,final}/{conv,bn}{1,2} (UNet++, the JAX names)."""
+    if mod[0].startswith("block"):
+        i, sub = mod[0][len("block"):], mod[1]
+        if sub.startswith("conv"):
+            return f"decoder.blocks.{i}.{sub}.0.weight"
+        return f"decoder.blocks.{i}.conv{sub[len('bn'):]}.1.{_BN_LEAF[leaf]}"
+    if mod[1].startswith("bn"):
+        return f"decoder.{mod[0]}.{mod[1]}.{_BN_LEAF[leaf]}"
+    return f"decoder.{mod[0]}.{mod[1]}.weight"
+
+
+def _classic_key(mod, leaf: str) -> str:
+    """down{i}/conv{c}, bottleneck/conv{c}, up{i}, updc{i}/conv{c}, head
+    -> the names import_classic_unet reads."""
+    m = mod[0]
+    if m == "head" or m == "bottleneck":
+        name = m
+    elif m.startswith("updc"):
+        name = f"updcs.{m[len('updc'):]}"
+    elif m.startswith("up"):
+        name = f"ups.{m[len('up'):]}"
+    else:
+        name = f"downs.{m[len('down'):]}"
+    sub = "".join(f".{x}" for x in mod[1:])
+    return f"{name}{sub}.{_conv_leaf(leaf)}"
+
+
 def _torch_key(path: tuple, encoder: str) -> str:
     mod, leaf = path[:-1], path[-1]
+    if encoder == "classic":
+        return _classic_key(mod, leaf)
     if mod[0] == "encoder":
         if encoder.startswith("resnet"):
             return _resnet_key(mod[1:], leaf)
         return _effnet_key(mod[1:], leaf)
     if mod[0] == "decoder":
-        i, sub = mod[1][len("block"):], mod[2]
-        if sub.startswith("conv"):
-            return f"decoder.blocks.{i}.{sub}.0.weight"
-        return f"decoder.blocks.{i}.conv{sub[len('bn'):]}.1.{_BN_LEAF[leaf]}"
-    if mod[0] == "segmentation_head":
-        return ("segmentation_head.0."
-                f"{'weight' if leaf == 'kernel' else 'bias'}")
+        return _decoder_key(mod[1:], leaf)
+    if mod[0] == "segmentation_head" or mod[0].startswith("aux_head_"):
+        return f"{mod[0]}.0.{_conv_leaf(leaf)}"
     raise KeyError(f"unexpected JAX variable {'/'.join(path)}")
 
 
@@ -101,19 +138,20 @@ def jax_variables_to_state_dict(variables_np: Mapping,
                                 encoder: str = "efficientnet-b0"
                                 ) -> Dict[str, torch.Tensor]:
     """JAX {"params","batch_stats"} numpy tree -> torch state dict for
-    build_model(encoder): efficientnet-b0, resnet34 or resnet18."""
-    if encoder not in ("efficientnet-b0", "resnet34", "resnet18"):
-        raise NotImplementedError(
-            f"convert: encoder {encoder!r} is not ported yet (ROADMAP.md "
-            "Queue 1 item 5)")
+    build_model(encoder, decoder=...): the UNet or UNet++ on an
+    efficientnet-b0, resnet34 or resnet18 encoder, or encoder "classic"."""
+    if encoder not in ("efficientnet-b0", "resnet34", "resnet18", "classic"):
+        raise ValueError(f"convert: unknown encoder {encoder!r}")
     leaves = {**_flatten(variables_np["params"]),
               **_flatten(variables_np.get("batch_stats", {}))}
     sd = {}
     for path, v in leaves.items():
+        key = _torch_key(path, encoder)
         if path[-1] == "kernel" and v.ndim == 4:
-            v = np.transpose(v, (3, 2, 0, 1))
-        sd[_torch_key(path, encoder)] = torch.from_numpy(
-            np.array(v, np.float32))
+            # the classic UNet's ConvTranspose kernels ("ups.{i}")
+            v = (np.transpose(v[::-1, ::-1], (2, 3, 0, 1))
+                 if key.startswith("ups.") else np.transpose(v, (3, 2, 0, 1)))
+        sd[key] = torch.from_numpy(np.array(v, np.float32))
     return sd
 
 

@@ -23,9 +23,19 @@ elementwise math follows `bn_train` op for op.
 entry point turns CARTSEG_PALLAS_BN into it (workloads/_runner.py).
 Both lanes hold the same parameters and buffers, so a checkpoint loads
 in either.
+
+Activation recompute (the trainer's `remat`, torch.utils.checkpoint)
+runs a train-mode forward a second time inside the backward. flax
+returns `batch_stats` once from the forward, so while a model is
+`recomputing(model)` (`remat_contexts`' second context, around that
+rerun) its BN layers in both lanes normalise with the batch's
+statistics as before and leave the running statistics and the batch
+counter as the forward left them.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn as nn
@@ -40,6 +50,8 @@ BN_LANES = ("torch", "channel_sums")
 class BatchNorm2d(nn.BatchNorm2d):
     """nn.BatchNorm2d whose train-mode running variance follows flax."""
 
+    recompute = False   # set by `recomputing`
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.training and self.track_running_stats
                 and self.momentum is not None):
@@ -49,6 +61,11 @@ class BatchNorm2d(nn.BatchNorm2d):
         # the op updates (and autograd may keep) its own copy r; the
         # buffer takes flax's value from r and the old value rv0
         r = self.running_var.clone()
+        if self.recompute:
+            # the same op on copies (the same kernel, so the same output);
+            # the buffers keep the forward's update
+            return F.batch_norm(x, self.running_mean.clone(), r,
+                                self.weight, self.bias, True, m, self.eps)
         y = F.batch_norm(x, self.running_mean, r, self.weight, self.bias,
                          True, m, self.eps)
         with torch.no_grad():
@@ -122,6 +139,8 @@ class ChannelSumsBatchNorm2d(nn.BatchNorm2d):
     momentum 0.1 is flax's 0.9), and eval mode as norm.py:108-112 in the
     input's type. Parameter and buffer names are nn.BatchNorm2d's."""
 
+    recompute = False   # set by `recomputing`
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             with torch.autocast(x.device.type, enabled=False):
@@ -131,12 +150,36 @@ class ChannelSumsBatchNorm2d(nn.BatchNorm2d):
                 return ((x - _per_channel(self.running_mean.to(dt)))
                         * _per_channel(mul) + _per_channel(self.bias.to(dt)))
         y, mean, var = BNTrain.apply(x, self.weight, self.bias, self.eps)
+        if self.recompute:
+            return y
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
             self.running_var.mul_(1.0 - m).add_(var, alpha=m)
             self.num_batches_tracked.add_(1)
         return y
+
+
+@contextlib.contextmanager
+def recomputing(model: nn.Module):
+    """The forward run inside this block reruns one that already ran:
+    model's BN layers update no running statistics."""
+    bns = [m for m in model.modules()
+           if isinstance(m, (BatchNorm2d, ChannelSumsBatchNorm2d))]
+    for m in bns:
+        m.recompute = True
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.recompute = False
+
+
+def remat_contexts(model: nn.Module):
+    """torch.utils.checkpoint's `context_fn` for model (bind it with
+    functools.partial): nothing around the forward, `recomputing(model)`
+    around its rerun."""
+    return contextlib.nullcontext(), recomputing(model)
 
 
 def batch_norm(num_features: int, eps: float, lane: str = "torch"

@@ -5,8 +5,9 @@ workload's `CONFIG` literal and its CLI read the same, plus `device`:
 "cuda" by default, and `--device cpu` is the only way onto the CPU.
 Every field is overridable from the CLI (``--field value``).
 
-Fields this slice does not run are accepted at their defaults and raise
-`NotImplementedError` naming the ROADMAP item when set (`check_supported`).
+A field the port does not run (an Orbax `init_checkpoint`) is accepted
+at its default and raises `NotImplementedError` when set
+(`check_supported`).
 """
 
 from __future__ import annotations
@@ -35,6 +36,9 @@ class SourceSpec:
     ratio: float = 1.0
     loss_weight: float = 1.0
     oversample: float = 1.0
+
+
+DECODERS = ("unet", "unetpp", "unetpp_ds")
 
 
 @dataclasses.dataclass
@@ -124,26 +128,18 @@ class TrainConfig:
 
 
 def check_supported(cfg: TrainConfig) -> None:
-    """Raise NotImplementedError for a field set to a value this slice of
-    the port does not run (never ignore it silently)."""
+    """Raise for a field set to a value the port does not run (never
+    ignore it silently): an Orbax `init_checkpoint` (ROADMAP.md Queue 1
+    item 1) and a decoder that names no model family."""
     todo = []
-    if cfg.sources or cfg.sources_json:
-        todo.append("sources/sources_json: mixed-source curriculum and "
-                    "data/sampling.py (ROADMAP.md Queue 1 item 4)")
-    if cfg.decoder != "unet":
-        todo.append(f"decoder {cfg.decoder!r} (ROADMAP.md Queue 1 item 5)")
-    if cfg.remat:
-        todo.append("remat: activation recompute (ROADMAP.md Queue 1 "
-                    "item 4)")
-    if cfg.trace_dir:
-        todo.append("trace_dir: profiler traces of the first epoch "
-                    "(ROADMAP.md Queue 1 item 4)")
+    if cfg.decoder not in DECODERS:
+        todo.append(f"decoder {cfg.decoder!r} (one of {DECODERS})")
     if cfg.init_checkpoint:
         todo.append("init_checkpoint: an Orbax directory of the JAX "
                     "package; give a .pth as init_torch_checkpoint")
     if todo:
         raise NotImplementedError(
-            "cartseg_tpu_torch does not run these settings yet: "
+            "cartseg_tpu_torch does not run these settings: "
             + "; ".join(todo))
 
 

@@ -12,31 +12,44 @@ update on the device. Validation takes exact weighted means; the run
 ends with a threshold sweep on the best checkpoint and writes the
 `.threshold.json` sidecar beside the reference-format `.pth`.
 
-Out of this slice (raise NotImplementedError, train/config.py
-`check_supported`): mixed sources and the curriculum sampler, UNet++,
-remat, profiler traces, Orbax init checkpoints.
+Mixed sources (`sources` / `sources_json`): each source's mirrored pairs,
+the val source split off, one epoch order drawn by `WeightedSampler`
+(ratio / length times oversample), and each sample's loss weight from
+its source, the last of three or more on the curriculum ramp. `remat`
+recomputes the forward in the backward (torch.utils.checkpoint; the BN
+layers update their running statistics once, models/norm.py).
+`trace_dir` writes a torch.profiler trace of epoch 0's train loop.
+An Orbax `init_checkpoint` raises (train/config.py `check_supported`).
 `use_mesh` is accepted and means nothing on one card.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import json
 import time
 from pathlib import Path
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from cartseg_tpu_torch import metrics as M
 from cartseg_tpu_torch.data.augment import (AugmentConfig, augment_batch,
                                             normalize_batch)
 from cartseg_tpu_torch.data.dataset import SegmentationDataset
 from cartseg_tpu_torch.data.pairing import (gather_pairs,
+                                            gather_pairs_mirror,
                                             gather_pairs_multiroot,
                                             random_split, session_split,
                                             session_split_seeded)
 from cartseg_tpu_torch.data.pipeline import Loader
+from cartseg_tpu_torch.data.sampling import (MixedSource, WeightedSampler,
+                                             curriculum_weight,
+                                             mixed_index_table,
+                                             mixed_sample_weights)
 from cartseg_tpu_torch.device import resolve_device
 from cartseg_tpu_torch.losses.abl import bce_dice_abl
 from cartseg_tpu_torch.losses.boundary import composite_seg_loss
@@ -44,15 +57,17 @@ from cartseg_tpu_torch.losses.region import (bce_dice_loss,
                                              bce_dice_per_sample,
                                              focal_dice_loss)
 from cartseg_tpu_torch.models.factory import build_model, param_groups
+from cartseg_tpu_torch.models.norm import remat_contexts
 from cartseg_tpu_torch.models.pretrained import (load_encoder_state_dict,
                                                  load_pretrained_encoder)
 from cartseg_tpu_torch.train import checkpoint as ckpt_lib
-from cartseg_tpu_torch.train.config import TrainConfig, check_supported
+from cartseg_tpu_torch.train.config import (SourceSpec, TrainConfig,
+                                            check_supported)
 from cartseg_tpu_torch.train.optim import (AdamWState, adamw_update,
                                            group_ids, init_adamw)
 from cartseg_tpu_torch.train.schedules import FreezePhase, cosine_epoch_lr
 from cartseg_tpu_torch.utils.io import CSVLogger, JSONHistory
-from cartseg_tpu_torch.utils.profiling import StepTimer
+from cartseg_tpu_torch.utils.profiling import StepTimer, maybe_trace
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
            "float32": torch.float32}
@@ -135,8 +150,8 @@ class Trainer:
             cfg.augment, AugmentConfig.none)(cfg.imagenet_norm)
         self.val_aug_cfg = AugmentConfig.none(cfg.imagenet_norm)
         self.loss_fn = resolve_loss(cfg.loss)
-        # raises early if the encoder or the lane is not ported
-        build_model(cfg.encoder, cfg.classes, bn_lane)
+        # raises early if the encoder, decoder or lane is unknown
+        build_model(cfg.encoder, cfg.classes, bn_lane, cfg.decoder)
 
     # ------------------------------------------------------------ setup
 
@@ -147,7 +162,8 @@ class Trainer:
         cfg = self.cfg
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(cfg.seed)
-            model = build_model(cfg.encoder, cfg.classes, self.bn_lane)
+            model = build_model(cfg.encoder, cfg.classes, self.bn_lane,
+                                cfg.decoder)
         if cfg.init_torch_checkpoint:
             sd = torch.load(cfg.init_torch_checkpoint, map_location="cpu",
                             weights_only=True)
@@ -174,7 +190,10 @@ class Trainer:
         return group_ids(param_groups(state.model))
 
     def build_datasets(self):
-        """(train_ds, val_ds) in single or multi-root pair mode."""
+        """(train_ds, val_ds, sampler, src_of_global): the mixed-source
+        mode (sampler and src_of_global set) or the single / multi-root
+        pair mode (both None), as the JAX engine builds them
+        (engine.py:187-280)."""
         cfg = self.cfg
         if cfg.synthetic:
             from cartseg_tpu_torch.utils.synthetic import make_png_pair_tree
@@ -185,6 +204,13 @@ class Trainer:
             cfg = dataclasses.replace(cfg, images_root=str(ir),
                                       masks_root=str(mr))
             self.cfg = cfg
+        if cfg.sources_json:
+            specs = json.loads(Path(cfg.sources_json).read_text())
+            cfg = dataclasses.replace(
+                cfg, sources=[SourceSpec(**s) for s in specs])
+            self.cfg = cfg
+        if cfg.sources:
+            return self._mixed_datasets(cfg)
         if cfg.image_roots:
             pairs = gather_pairs_multiroot(
                 [Path(r) for r in cfg.image_roots], Path(cfg.masks_root),
@@ -202,19 +228,59 @@ class Trainer:
             tr, va = session_split_seeded(pairs, cfg.val_frac, cfg.seed)
         else:
             tr, va = random_split(len(pairs), cfg.val_frac, cfg.seed)
-        size = cfg.img_size
-        return (SegmentationDataset([pairs[i] for i in tr], size,
-                                    cfg.side_padding_ratio),
-                SegmentationDataset([pairs[i] for i in va], size,
-                                    cfg.side_padding_ratio))
+        size, pad = cfg.img_size, cfg.side_padding_ratio
+        return (SegmentationDataset([pairs[i] for i in tr], size, pad),
+                SegmentationDataset([pairs[i] for i in va], size, pad),
+                None, None)
+
+    @staticmethod
+    def _mixed_datasets(cfg: TrainConfig):
+        """Each source's mirrored pairs; the val source (named by
+        val_source, else the first; a name that matches no source falls
+        back to the first, as JAX's engine.py:223-224 does) split by
+        random_split; per-sample weights ratio / length times the
+        source's oversample factor; the sources' train pairs concatenated
+        in order, with the source of each global index."""
+        per = [gather_pairs_mirror(Path(s.images_root), Path(s.masks_root))
+               for s in cfg.sources]
+        want = cfg.val_source or cfg.sources[0].name
+        vi = next((i for i, s in enumerate(cfg.sources) if s.name == want),
+                  0)
+        tr_idx, va_idx = random_split(len(per[vi]), cfg.val_frac, cfg.seed)
+        val_pairs = [per[vi][i] for i in va_idx]
+        per[vi] = [per[vi][i] for i in tr_idx]
+        mixed = [MixedSource(s.name, len(p), s.ratio, s.loss_weight)
+                 for s, p in zip(cfg.sources, per)]
+        ov = np.concatenate([[s.oversample] * len(p)
+                             for s, p in zip(cfg.sources, per)])
+        sampler = WeightedSampler(mixed_sample_weights(mixed) * ov,
+                                  num_samples=sum(len(p) for p in per),
+                                  seed=cfg.seed)
+        table = mixed_index_table(mixed)
+        size, pad = cfg.img_size, cfg.side_padding_ratio
+        train_ds = SegmentationDataset([per[si][li] for si, li in table],
+                                       size, pad)
+        src_of_global = np.asarray([si for si, _ in table], np.int32)
+        return (train_ds, SegmentationDataset(val_pairs, size, pad),
+                sampler, src_of_global)
 
     # ------------------------------------------------------------ steps
 
     def _forward(self, model, x_nhwc):
-        """NHWC float input -> NHWC float32 logits [B,H,W,C]."""
+        """NHWC float input -> NHWC float32 logits [B,H,W,C]. With remat,
+        a train-mode forward that records a graph keeps no activations
+        and runs again in the backward (the JAX jax.checkpoint of the
+        forward, engine.py:296-297)."""
+        x = x_nhwc.permute(0, 3, 1, 2)
         with torch.autocast(self.device.type, dtype=self.dtype,
                             enabled=self.dtype != torch.float32):
-            out = model(x_nhwc.permute(0, 3, 1, 2))
+            if self.cfg.remat and model.training and \
+                    torch.is_grad_enabled():
+                out = torch.utils.checkpoint.checkpoint(
+                    model, x, use_reentrant=False,
+                    context_fn=functools.partial(remat_contexts, model))
+            else:
+                out = model(x)
         return out.to(torch.float32).permute(0, 2, 3, 1)
 
     def train_step(self, state: TrainState, images_u8, masks, sample_w,
@@ -291,10 +357,14 @@ class Trainer:
             log: Callable[[str], None] = print) -> Dict[str, Any]:
         cfg = self.cfg
         out = cfg.out_path()
-        train_ds, val_ds = self.build_datasets()
+        train_ds, val_ds, sampler, src_of_global = self.build_datasets()
         cfg = self.cfg
         log(f"train={len(train_ds)} val={len(val_ds)} pairs; "
             f"device={self.device}")
+        if sampler is not None:
+            log("sources: " + ", ".join(
+                f"{s.name} {int((src_of_global == i).sum())}"
+                for i, s in enumerate(cfg.sources)))
 
         state = state if state is not None else self.init_state()
         gids = self.group_ids(state)
@@ -361,26 +431,49 @@ class Trainer:
 
         t_start = time.time()
         ones = torch.ones((cfg.batch_size,), device=dev)
+        base_w = np.asarray([s.loss_weight for s in cfg.sources] or [1.0],
+                            np.float32)
         for epoch in range(start_epoch, cfg.epochs):
             lr_epoch = cosine_epoch_lr(cfg.lr, epoch, cfg.epochs)
             enc_s, dec_s, head_s = phase.lr_scales(
                 epoch, cfg.encoder_lr_scale, cfg.head_lr_scale)
             lrs = [lr_epoch * enc_s, lr_epoch * dec_s, lr_epoch * head_s]
             active = [1.0 if phase.encoder_on(epoch) else 0.0, 1.0, 1.0]
-            order = epoch_order(cfg.seed, epoch, len(train_ds))
+            # the epoch plan (engine.py:498-510): the sampler keyed by
+            # epoch in mixed mode, so a resumed run draws the same orders
+            if sampler is not None:
+                order = sampler.epoch(epoch)
+            else:
+                order = epoch_order(cfg.seed, epoch, len(train_ds))
+            w_epoch = base_w.copy()
+            if cfg.use_curriculum and len(w_epoch) >= 3:
+                w_epoch[-1] = curriculum_weight(
+                    epoch, cfg.pseudo_w_start, cfg.pseudo_w_end,
+                    cfg.pseudo_ramp_epochs)
+            if sampler is not None:
+                log(f"epoch {epoch + 1} loss weights: " + ", ".join(
+                    f"{s.name} {w:.4g}" for s, w in zip(cfg.sources,
+                                                        w_epoch)))
 
             losses, oks, comps_acc = [], [], []
             timer = StepTimer()
-            for imgs, masks in loader(order):
-                loss, ok, comps = self.train_step(
-                    state, imgs, masks, ones[:imgs.shape[0]], lrs, active,
-                    gids)
-                losses.append(loss)
-                oks.append(ok)
-                if comps:
-                    comps_acc.append(comps)
-                images_seen += imgs.shape[0]
-                timer.step(imgs.shape[0])
+            with maybe_trace(cfg.trace_dir if epoch == 0 else None, dev):
+                for bi, (imgs, masks) in enumerate(loader(order)):
+                    b = imgs.shape[0]
+                    if src_of_global is not None:
+                        sw = torch.from_numpy(w_epoch[src_of_global[
+                            order[bi * cfg.batch_size:
+                                  bi * cfg.batch_size + b]]]).to(dev)
+                    else:
+                        sw = ones[:b]
+                    loss, ok, comps = self.train_step(
+                        state, imgs, masks, sw, lrs, active, gids)
+                    losses.append(loss)
+                    oks.append(ok)
+                    if comps:
+                        comps_acc.append(comps)
+                    images_seen += b
+                    timer.step(b)
 
             vlosses, vns, sum_acc = [], [], []
             for bi, (imgs, masks) in enumerate(val_loader(val_order())):

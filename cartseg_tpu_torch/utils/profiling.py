@@ -1,18 +1,20 @@
-"""Step timer (counterpart of cartseg_tpu/utils/profiling.py
-`StepTimer`): wall-clock step stats whose rates land in the metrics
-CSV. The JAX `maybe_trace` (jax.profiler) is not ported: `trace_dir`
-raises NotImplementedError in the port (train/config.py). Beside it,
-the operations a call runs on the card: `device_kernels`, with their
-device times, from torch.profiler's trace (which can lose events), and
-`graph_nodes`, every one of them, from a CUDA graph of the call."""
+"""Step timer and traces (counterpart of cartseg_tpu/utils/profiling.py):
+`StepTimer`, wall-clock step stats whose rates land in the metrics CSV,
+and `maybe_trace`, the trainer's torch.profiler trace of its first epoch
+under `trace_dir`. Beside them, the operations a call runs on the card:
+`device_kernels`, with their device times, from torch.profiler's trace
+(which can lose events), and `graph_nodes`, every one of them, from a
+CUDA graph of the call."""
 
 from __future__ import annotations
 
+import contextlib
 import os
 import re
 import tempfile
 import time
 import warnings
+from pathlib import Path
 
 
 class StepTimer:
@@ -37,6 +39,36 @@ class StepTimer:
         self.t0 = time.time()
         self.steps = 0
         self.images = 0
+
+
+TRACE_NAME = "epoch0.trace.json"
+
+
+@contextlib.contextmanager
+def maybe_trace(trace_dir, device):
+    """A torch.profiler trace of the block (CPU activity, and CUDA's on a
+    card), written as a Chrome trace to `trace_dir`/TRACE_NAME when the
+    block ends; nothing when trace_dir is empty. Unlike the JAX function
+    it catches nothing: a profiler that cannot start raises, and an
+    exception of the block reaches the caller unchanged (no trace is
+    written then)."""
+    if not trace_dir:
+        yield None
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile, supported_activities
+
+    acts = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    missing = [a for a in acts if a not in supported_activities()]
+    if missing:
+        raise RuntimeError(f"torch.profiler cannot trace {missing} here")
+    out = Path(trace_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield prof
+    prof.export_chrome_trace(str(out / TRACE_NAME))
 
 
 def device_kernels(fn, calls: int = 1) -> dict:

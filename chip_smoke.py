@@ -147,6 +147,30 @@ Phases, in order; any failure raises and the exit code is non-zero:
         JPEGs at --batch_size 64 --img_size 512 with that model.pth as
         the three members: every mask, prob file and CSV row, cc, reach
         and median launched;
+     i. mixed-source fine-tuning with cv2 and PIL refused: three mirrored
+        sources (hard, clean, pseudo) of 2 x 12 JPEGs cycled from the
+        fixtures; finetune_for_224 at its CONFIG (effnet-b0, 224^2, bs20,
+        curriculum, encoder frozen 2 epochs) for 3 epochs of its 20
+        (--stop_after_epoch 3; each epoch's pseudo sample weight 0.45 /
+        0.50 / 0.55 and the frozen encoder read from the entry point's
+        own steps), then --resume --epochs 3 for its 19-point sweep;
+        finetune_pseudo for 1 epoch with --trace_dir (the Chrome trace
+        parses, its CUDA kernel events printed); finetune_pseudo_hard_
+        clean for 1 epoch from that run's model.pth (the state before
+        the first step equals the file's; hard's share of the sampler
+        2/3 and of the epoch orders printed); finetune_bce_dice_abl for
+        1 epoch (edt, lsr_fwd, lsr_bwd launched); each run's CSV,
+        history, .pth, sidecar and .last.pth; train_bce_dice --decoder
+        unetpp_ds on 4b's tree for 1 epoch in each BN lane (58 BNs,
+        channel_sums 116 launches a step in the kernel lane, 0 in the
+        torch lane, no other kernel), then its fp32 step in both lanes
+        as 4e; the remat check: 4e's fp32 resnet34-UNet step with
+        remat in each lane against the plain step at 4e's tolerances
+        (138 channel_sums launches: the forward, its recompute, the
+        backward), the step's ms and peak memory with and without remat
+        in fp32 and bf16, the peak predicted at bs128 and, where it fits,
+        the bs128 step run; the classic UNet at [1,3,512,512] fp32, card
+        against CPU (atol 1e-5);
   5. timing with CUDA events: the pseudo-label program per bs64 batch;
      CC on the path's masks, cart-like blobs and the mixed masks, and
      reach on the path's Canny maps, beside their bounds, with the CUDA
@@ -214,7 +238,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
      JPEG tree against its train steps' time, one item's read,
      letterbox, mask read and mask resize on one thread, and the
      pseudo-label batch of 64 JPEGs against the read and letterbox of
-     its frames.
+     its frames; each phase-4i run's train step on a device-resident
+     batch against its loader alone over an epoch (loader- or
+     step-bound).
 The line before the last holds the kernels' JSON record, the one before
 it the card's name and power limit, and the last line
 {"ok": true, "device": {...}}.
@@ -1548,11 +1574,14 @@ def phase_train_timing(dev, card: str, hist) -> dict:
             "library": library}
 
 
-def phase_bce_workload(tmp: Path, dev, ir: Path, mr: Path) -> dict:
+def phase_bce_workload(tmp: Path, dev, ir: Path, mr: Path,
+                       decoder: str = "unet", epochs: int = 2,
+                       n_bn: int = BCE_BN_LAYERS) -> dict:
     """workloads/train_bce_dice through its CLI at its CONFIG (resnet34-
-    UNet, bs6, 512^2, bf16, train_512), 2 epochs, once per BN lane: the
-    kernel lane by CARTSEG_PALLAS_BN=force, read by the entry point.
-    Launches: channel_sums twice per BN layer and step in the kernel
+    UNet, bs6, 512^2, bf16, train_512; phase 4i: --decoder unetpp_ds),
+    `epochs` epochs, once per BN lane: the kernel lane by
+    CARTSEG_PALLAS_BN=force, read by the entry point. Launches:
+    channel_sums twice per BN layer (n_bn of them) and step in the kernel
     lane, never in the torch lane, and no other kernel in either."""
     from cartseg_tpu_torch.infer.engine import load_member
     from cartseg_tpu_torch.models.norm import (BatchNorm2d,
@@ -1563,7 +1592,7 @@ def phase_bce_workload(tmp: Path, dev, ir: Path, mr: Path) -> dict:
 
     runs = {}
     for lane, switch in (("channel_sums", "force"), ("torch", None)):
-        out = tmp / f"run_bce_{lane}"
+        out = tmp / f"run_bce_{decoder}_{lane}"
         prev = os.environ.pop("CARTSEG_PALLAS_BN", None)
         if switch is not None:
             os.environ["CARTSEG_PALLAS_BN"] = switch
@@ -1572,8 +1601,8 @@ def phase_bce_workload(tmp: Path, dev, ir: Path, mr: Path) -> dict:
             t0 = time.perf_counter()
             result = cli.main(["--images_root", str(ir), "--masks_root",
                                str(mr), "--out_dir", str(out), "--epochs",
-                               "2", "--device", "cuda"],
-                              log=lambda m: log(f"    {m}"))
+                               str(epochs), "--device", "cuda", "--decoder",
+                               decoder], log=lambda m: log(f"    {m}"))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = dict(build.LAUNCHES)
@@ -1585,15 +1614,14 @@ def phase_bce_workload(tmp: Path, dev, ir: Path, mr: Path) -> dict:
         bns = [m for m in result["state"].model.modules()
                if isinstance(m, torch.nn.BatchNorm2d)]
         cls = ChannelSumsBatchNorm2d if switch else BatchNorm2d
-        want = 2 * BCE_BN_LAYERS * steps if switch else 0
+        want = 2 * n_bn * steps if switch else 0
         others = {k: v for k, v in launches.items()
                   if k != "channel_sums" and v}
         log(f"  {lane} lane (CARTSEG_PALLAS_BN={switch}): {steps} steps in "
             f"{wall:.1f} s wall (init, PNG decode, val and the sweep "
             f"included); {len(bns)} BNs, all {cls.__name__}; launches "
             f"{launches}")
-        if len(bns) != BCE_BN_LAYERS or any(type(m) is not cls
-                                            for m in bns):
+        if len(bns) != n_bn or any(type(m) is not cls for m in bns):
             raise AssertionError(f"{lane} lane: BN modules "
                                  f"{sorted({type(m).__name__ for m in bns})}")
         if launches["channel_sums"] != want or others or steps <= 0:
@@ -1601,13 +1629,20 @@ def phase_bce_workload(tmp: Path, dev, ir: Path, mr: Path) -> dict:
                                  f"{launches['channel_sums']} times in "
                                  f"{steps} steps, want {want}; others "
                                  f"{others}")
-        rows = check_train_outputs(out, SCHEMAS["basic"])
+        rows = check_train_run(out, SCHEMAS["basic"], epochs)
+        hist = json.loads((out / "history.json").read_text())
+        if decoder != "unet":
+            log(f"  {lane} lane outputs: CSV {rows[1:]}, history, .pth + "
+                f"sidecar + .last.pth; channel_sums "
+                f"{launches['channel_sums'] / steps:g} launches a step")
+            runs[lane] = {"launches": launches, "steps": steps, "out": out,
+                          "roots": (str(ir), str(mr))}
+            continue
         member = load_member(out / "model.pth", encoder="resnet34",
                              device=dev)
         if abs(member.threshold - result["threshold"]) > 1e-9:
             raise AssertionError("the .pth did not load with the sweep's "
                                  "threshold")
-        hist = json.loads((out / "history.json").read_text())
         log(f"  {lane} lane outputs: CSV {rows[1:]}, .pth + sidecar "
             f"(threshold {member.threshold:.2f}) + .last.pth; the .pth "
             "loads into the pseudo-labeller as resnet34")
@@ -1633,8 +1668,9 @@ def _rel_l2(a: dict, b: dict) -> float:
                  / torch.cat([b[k].reshape(-1) for k in b]).norm())
 
 
-def phase_bce_reference(dev) -> None:
-    """One fp32 step (TF32 off) of the workload's CONFIG at 512^2 bs6 in
+def phase_bce_reference(dev, argv=(), n_bn: int = BCE_BN_LAYERS) -> dict:
+    """One fp32 step (TF32 off) of the workload's CONFIG (with `argv`'s
+    overrides, e.g. phase 4i's --decoder unetpp_ds) at 512^2 bs6 in
     both lanes from the same weights, generator and batch: loss within
     1e-5 relative and running statistics within 1e-5. The gradients
     (read from the first moment) are held to the torch lane's gradient
@@ -1644,7 +1680,10 @@ def phase_bce_reference(dev) -> None:
     it. This model's fp32 gradient is ill conditioned (train-mode BN at
     every layer): either lane's distance from float64, printed below, is
     far above what a fixed tolerance between two BN implementations could
-    ask, and a wrong gradient would be O(1) away."""
+    ask, and a wrong gradient would be O(1) away. Returns what the remat
+    check (phase 4i) holds its steps against: the config, weights, batch,
+    each lane's (loss, gradient, running stats, launches) and the torch
+    lane's distance from float64."""
     from cartseg_tpu_torch.data.augment import augment_batch
     from cartseg_tpu_torch.device import set_fp32_policy
     from cartseg_tpu_torch.models import build_model
@@ -1655,7 +1694,7 @@ def phase_bce_reference(dev) -> None:
 
     set_fp32_policy()
     cfg = apply_cli_overrides(CONFIG, ["--device", "cuda", "--compute_dtype",
-                                       "float32"])
+                                       "float32", *argv])
     imgs, masks = bce_batch(S, TRAIN_BS, dev)
     sw = torch.ones(TRAIN_BS, device=dev)
     sd, outs = None, {}
@@ -1678,7 +1717,7 @@ def phase_bce_reference(dev) -> None:
     gen = torch.Generator(device=dev)
     gen.manual_seed(cfg.seed)
     x, m = augment_batch(gen, imgs, masks, tr.aug_cfg)
-    ref = build_model(cfg.encoder, cfg.classes, "torch")
+    ref = build_model(cfg.encoder, cfg.classes, "torch", cfg.decoder)
     ref.load_state_dict(sd)
     ref = ref.to(dev).double().to(memory_format=torch.channels_last).train()
     logits = ref(x.double().permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
@@ -1692,7 +1731,8 @@ def phase_bce_reference(dev) -> None:
     serr = max(float(((rk[k] - rt[k]).abs()
                       / (1.0 + rt[k].abs())).max()) for k in rt)
     lrel = abs(lk - lt) / abs(lt)
-    log(f"  fp32 step [{TRAIN_BS},{S},{S}] (TF32 off), channel_sums lane vs "
+    log(f"  {cfg.encoder} {cfg.decoder} fp32 step [{TRAIN_BS},{S},{S}] "
+        f"(TF32 off), channel_sums lane vs "
         f"torch lane: loss {lk:.8f} vs {lt:.8f} (rel {lrel:.2e}, limit "
         f"1e-5); gradient rel L2 to the float64 torch lane: torch lane "
         f"{e_t:.3e}, channel_sums lane {e_k:.3e} (limit 2x the torch "
@@ -1703,8 +1743,10 @@ def phase_bce_reference(dev) -> None:
         f"(limit 1e-5); channel_sums launches {nk} / {nt}")
     build.reset_launch_counts()
     if not (lrel <= 1e-5 and e_k <= 2 * e_t and gap <= 2 * e_t
-            and serr <= 1e-5 and nk == 2 * BCE_BN_LAYERS and nt == 0):
+            and serr <= 1e-5 and nk == 2 * n_bn and nt == 0):
         raise AssertionError("fp32 step: the two BN lanes disagree")
+    return {"cfg": cfg, "sd": sd, "imgs": imgs, "masks": masks,
+            "outs": outs, "e_t": e_t}
 
 
 def _bn_inputs(st, step) -> list:
@@ -3588,7 +3630,7 @@ def phase_jpeg_timing(dev, ir: Path, mr: Path, pth: Path,
     cfg = tw.CONFIG.with_overrides(images_root=str(ir), masks_root=str(mr),
                                    device="cuda", out_dir=str(ir.parent))
     tr = Trainer(cfg)
-    train_ds, _ = tr.build_datasets()
+    train_ds = tr.build_datasets()[0]
     loader = Loader(train_ds, cfg.batch_size, device=dev,
                     num_threads=cfg.num_threads)
     order = epoch_order(cfg.seed, 0, len(train_ds))
@@ -3657,6 +3699,442 @@ def phase_jpeg_timing(dev, ir: Path, mr: Path, pth: Path,
         f"{read_ms / (read_ms + prog_ms):.3f} of the two; in the workload's "
         f"loop {pseudo['read_s']:.3f} of {pseudo['wall_s']:.3f} s "
         f"({card})")
+
+
+# ------------------------------- mixed sources, remat, traces, UNet++
+
+# phase 4i's three mirrored sources, each MIXED_SESSIONS x
+# MIXED_PER_SESSION camera JPEGs cycled from the fixtures
+MIXED_SOURCES, MIXED_SESSIONS, MIXED_PER_SESSION = (
+    ("hard", "clean", "pseudo"), 2, 12)
+# resnet34 UNet++: the encoder's 36 BatchNorms and two in each of the
+# decoder's 11 blocks (10 nodes x_{i}_{j} and final)
+UNETPP_BN_LAYERS = 36 + 22
+# finetune_for_224's pseudo loss weight in its first three epochs,
+# curriculum_weight(e, 0.4, 0.6, 4), and the epochs its encoder is frozen
+PSEUDO_W, FROZEN_EPOCHS = (0.45, 0.5, 0.55), 2
+# steps timed for the remat step's ms and peak memory; the batch of the
+# headline step the bs6 peaks are scaled to (ROADMAP Queue 1 item 12)
+REMAT_REPS, HEADLINE_BS = 5, 128
+
+
+def make_mixed_sources(tmp: Path) -> dict:
+    """name -> (images_root, masks_root): mirrored trees (the same
+    relative path under both roots) of MIXED_SESSIONS x MIXED_PER_SESSION
+    1280x720 JPEGs cycled from the fixtures, each source from its own
+    start, with the fixtures' letterboxed mask PNGs."""
+    out = {}
+    for si, name in enumerate(MIXED_SOURCES):
+        root = tmp / "mixed" / name
+        i = 3 * si
+        for s in range(MIXED_SESSIONS):
+            sess = f"session_{s:03d}"
+            for sub in ("images", "masks"):
+                (root / sub / sess).mkdir(parents=True, exist_ok=True)
+            for _ in range(MIXED_PER_SESSION):
+                stem = TRAIN_JPEGS[i % len(TRAIN_JPEGS)]
+                mask = FIXTURES / f"frame_{stem.split('_')[1]}.mask.png"
+                (root / "images" / sess / f"{name}_{i:03d}.jpeg").write_bytes(
+                    (FIXTURES / f"{stem}.jpeg").read_bytes())
+                (root / "masks" / sess / f"{name}_{i:03d}.png").write_bytes(
+                    mask.read_bytes())
+                i += 1
+        out[name] = (root / "images", root / "masks")
+    log(f"  mixed sources {', '.join(MIXED_SOURCES)}: {MIXED_SESSIONS}x"
+        f"{MIXED_PER_SESSION} 1280x720 JPEGs each, with their masks")
+    return out
+
+
+def sources_json(path: Path, cli, roots: dict) -> Path:
+    """A --sources_json file: the workload's CONFIG.sources (names, ratios,
+    loss weights, oversampling) on phase 4i's trees."""
+    import dataclasses
+
+    path.write_text(json.dumps([
+        dict(dataclasses.asdict(s), images_root=str(roots[s.name][0]),
+             masks_root=str(roots[s.name][1]))
+        for s in cli.CONFIG.sources]))
+    return path
+
+
+class spy_trainer:
+    """While active, records what the entry point's own Trainer calls
+    see: the model state `init_state` returns (on the host) and each
+    train step's sample weights and active groups."""
+
+    def __enter__(self):
+        from cartseg_tpu_torch.train.engine import Trainer
+
+        self.cls = Trainer
+        self.init0, self.step0 = Trainer.init_state, Trainer.train_step
+        self.first, self.steps = None, []
+        spy = self
+
+        def init_state(tr):
+            st = spy.init0(tr)
+            spy.first = {k: v.detach().cpu().clone()
+                         for k, v in st.model.state_dict().items()}
+            return st
+
+        def train_step(tr, state, imgs, masks, sample_w, lrs, active, gids):
+            spy.steps.append((sample_w.cpu(), list(active)))
+            return spy.step0(tr, state, imgs, masks, sample_w, lrs, active,
+                             gids)
+
+        Trainer.init_state, Trainer.train_step = init_state, train_step
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.init_state, self.cls.train_step = self.init0, self.step0
+        return False
+
+
+def run_finetune(name: str, tmp: Path, roots: dict, *extra) -> dict:
+    """workloads/<name>.main at its CONFIG on the mixed sources (launch
+    counts set to 0 just before and read just after, the Trainer spied)."""
+    import importlib
+
+    from cartseg_tpu_torch.ops.cuda import build
+
+    cli = importlib.import_module(f"cartseg_tpu_torch.workloads.{name}")
+    out = tmp / f"run_{name}"
+    js = sources_json(tmp / f"{name}.sources.json", cli, roots)
+    argv = ["--sources_json", str(js), "--out_dir", str(out), "--device",
+            "cuda", *extra]
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with spy_trainer() as spy:
+        result = cli.main(argv, log=lambda m: log(f"    {m}"))
+    torch.cuda.synchronize()
+    return {"cli": cli, "argv": argv, "out": out, "result": result,
+            "spy": spy, "wall": time.perf_counter() - t0,
+            "launches": {k: v for k, v in build.LAUNCHES.items() if v}}
+
+
+def phase_finetune_workloads(tmp: Path, roots: dict) -> dict:
+    """The four finetune workloads through their CLIs at their CONFIG
+    (encoder, size, batch, loss, LR tiers and the sources' ratios, loss
+    weights and oversampling unchanged): finetune_for_224 for 3 epochs of
+    its 20-epoch schedule (--stop_after_epoch 3, then --resume --epochs 3
+    runs its 19-point sweep on the best checkpoint), the pseudo weight of
+    each epoch 0.45 / 0.50 / 0.55 in the steps' sample weights and the
+    encoder frozen in the first two; finetune_pseudo for 1 epoch with
+    --trace_dir (the trace parses; its kernel events counted);
+    finetune_pseudo_hard_clean for 1 epoch from finetune_pseudo's
+    model.pth (the state before the first step equals the file's; the
+    hard share of its epoch order); finetune_bce_dice_abl for 1 epoch
+    (edt, lsr_fwd and lsr_bwd launched). Each run's CSV, history, .pth,
+    sidecar and .last.pth."""
+    from cartseg_tpu_torch.train import Trainer
+    from cartseg_tpu_torch.train.config import apply_cli_overrides
+    from cartseg_tpu_torch.train.engine import SCHEMAS
+    from cartseg_tpu_torch.utils.profiling import TRACE_NAME
+
+    runs = {}
+    # finetune_for_224: 3 epochs, then the sweep
+    r = run_finetune("finetune_for_224", tmp, roots, "--stop_after_epoch",
+                     "3")
+    steps = r["spy"].steps
+    n = len(steps) // 3
+    if not r["result"].get("interrupted") or n <= 0 or len(steps) != 3 * n:
+        raise AssertionError(f"finetune_for_224: {len(steps)} steps, "
+                             f"result {r['result'].get('interrupted')}")
+    for e in range(3):
+        ws = set(torch.cat([w for w, _ in steps[e * n:(e + 1) * n]]).tolist())
+        frozen = {a[0] for _, a in steps[e * n:(e + 1) * n]}
+        want = float(np.float32(PSEUDO_W[e]))
+        log(f"  finetune_for_224 epoch {e + 1}: sample weights {sorted(ws)} "
+            f"(pseudo {PSEUDO_W[e]}), encoder "
+            f"{'frozen' if frozen == {0.0} else 'trained'}")
+        if ws != {1.0, want} or frozen != {0.0 if e < FROZEN_EPOCHS else 1.0}:
+            raise AssertionError(f"finetune_for_224 epoch {e + 1}: weights "
+                                 f"{ws}, active {frozen}")
+    cli = r["cli"]
+    res = cli.main(r["argv"] + ["--resume", "--epochs", "3"],
+                   log=lambda m: log(f"    {m}"))
+    rows = check_train_run(r["out"], SCHEMAS["basic"], 3)
+    grid = np.linspace(*cli.CONFIG.threshold_sweep[:2],
+                       int(cli.CONFIG.threshold_sweep[2]))
+    side = json.loads((r["out"] / "model.threshold.json").read_text())
+    if len(grid) != 19 or np.abs(grid - side["threshold"]).min() > 1e-9 \
+            or abs(side["threshold"] - res["threshold"]) > 1e-9:
+        raise AssertionError(f"finetune_for_224's sweep: {side}")
+    log(f"  finetune_for_224: {len(steps)} steps, 3 epochs in "
+        f"{r['wall']:.1f} s wall; CSV {rows[1:]}; the 19-point sweep's "
+        f"threshold {side['threshold']:.2f} (Dice {side['dice']:.4f})")
+    runs["finetune_for_224"] = r
+
+    # finetune_pseudo, epoch 0 traced
+    trace_dir = tmp / "trace_finetune_pseudo"
+    r = run_finetune("finetune_pseudo", tmp, roots, "--epochs", "1",
+                     "--trace_dir", str(trace_dir))
+    rows = check_train_run(r["out"], SCHEMAS["basic"], 1)
+    trace = trace_dir / TRACE_NAME
+    events = json.loads(trace.read_text())["traceEvents"]
+    kernels = sum(e.get("cat") == "kernel" for e in events)
+    log(f"  finetune_pseudo: {len(r['spy'].steps)} steps, 1 epoch in "
+        f"{r['wall']:.1f} s wall (the trace included); CSV {rows[1]}; "
+        f"{trace.name} {trace.stat().st_size / 1e6:.1f} MB, {len(events)} "
+        f"events, {kernels} CUDA kernel events (torch.profiler may drop "
+        f"some on these machines: printed, not gated)")
+    runs["finetune_pseudo"] = r
+
+    # finetune_pseudo_hard_clean from finetune_pseudo's model.pth
+    pth = r["out"] / "model.pth"
+    r = run_finetune("finetune_pseudo_hard_clean", tmp, roots, "--epochs",
+                     "1", "--init_torch_checkpoint", str(pth))
+    rows = check_train_run(r["out"], SCHEMAS["basic"], 1)
+    want = torch.load(pth, map_location="cpu",
+                      weights_only=True)["model_state_dict"]
+    first = r["spy"].first
+    if first.keys() != want.keys() or not all(
+            torch.equal(first[k], v) for k, v in want.items()):
+        raise AssertionError("finetune_pseudo_hard_clean: the state before "
+                             "the first step is not the file's")
+    cfg = apply_cli_overrides(r["cli"].CONFIG, r["argv"])
+    _, _, sampler, src = Trainer(cfg).build_datasets()
+    order = sampler.epoch(0)
+    hard = float((src[order] == 0).mean())
+    p_hard = float(sampler.p[src == 0].sum())
+    epochs = r["cli"].CONFIG.epochs
+    every = float(np.mean([(src[sampler.epoch(e)] == 0).mean()
+                           for e in range(epochs)]))
+    log(f"  finetune_pseudo_hard_clean: started from {pth.parent.name}/"
+        f"{pth.name} ({len(want)} tensors equal before the first step); "
+        f"hard share of its epoch order {hard:.3f} of {len(order)} draws "
+        f"(hard x2 against clean, ratio / length: the sampler gives hard "
+        f"{p_hard:.4f}, 2/3 expected; over the CONFIG's {epochs} epochs' "
+        f"orders {every:.3f}); {len(r['spy'].steps)} steps in "
+        f"{r['wall']:.1f} s wall; CSV {rows[1]}")
+    if abs(p_hard - 2 / 3) > 1e-9:
+        raise AssertionError(f"finetune_pseudo_hard_clean: hard's share "
+                             f"of the sampler {p_hard}")
+    runs["finetune_pseudo_hard_clean"] = dict(r, hard_share=hard)
+
+    # finetune_bce_dice_abl: the ABL loss's kernels
+    r = run_finetune("finetune_bce_dice_abl", tmp, roots, "--epochs", "1")
+    rows = check_train_run(r["out"], SCHEMAS["abl"], 1)
+    if not all(r["launches"].get(k, 0) > 0 for k in TRAIN_KERNELS):
+        raise AssertionError(f"finetune_bce_dice_abl: launches "
+                             f"{r['launches']}")
+    log(f"  finetune_bce_dice_abl: {len(r['spy'].steps)} steps, 1 epoch in "
+        f"{r['wall']:.1f} s wall; abl CSV {rows[1]}; launches "
+        f"{r['launches']}")
+    runs["finetune_bce_dice_abl"] = r
+    return runs
+
+
+def _lane_step(tr, ref: dict) -> tuple:
+    """One train step of `tr` from ref's weights and batch: (loss,
+    gradient from the first moment, running stats, channel_sums
+    launches), as phase_bce_reference records its lanes."""
+    from cartseg_tpu_torch.ops.cuda import build
+
+    st = tr.init_state()
+    st.model.load_state_dict(ref["sd"])
+    build.reset_launch_counts()
+    loss, _, _ = tr.train_step(st, ref["imgs"], ref["masks"],
+                               torch.ones(TRAIN_BS, device=ref["imgs"].device),
+                               [1e-4] * 3, [1.0] * 3, tr.group_ids(st))
+    torch.cuda.synchronize()
+    return (float(loss), {k: v.double() / 0.1 for k, v in st.opt.mu.items()},
+            {k: v.clone() for k, v in st.model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))},
+            build.LAUNCHES["channel_sums"])
+
+
+def phase_remat(dev, ref: dict, card: str) -> dict:
+    """The remat check: phase 4e's fp32 resnet34-UNet step (512^2 bs6,
+    TF32 off) with remat on, in each BN lane, from the same weights and
+    batch, against that lane's plain step within phase 4e's tolerances
+    (loss 1e-5 relative, running stats 1e-5, the gradient within twice
+    the torch lane's own fp32 distance from float64); the kernel lane
+    launches channel_sums 3 times a BN layer (the forward, its recompute,
+    the backward). Then the step's ms (CUDA events) and peak
+    max_memory_allocated with and without remat, in fp32 and in the
+    CONFIG's bf16, and the bf16 peaks scaled to HEADLINE_BS; where that
+    prediction fits in 0.9 of the card, the headline step itself (512^2
+    bs128 bf16, random batch) with and without remat: ms and peak."""
+    import dataclasses
+
+    from cartseg_tpu_torch.train import Trainer
+
+    cfg = ref["cfg"]
+    for lane in BN_LANES:
+        tr = Trainer(dataclasses.replace(cfg, remat=True), bn_lane=lane)
+        lr, gr, sr, nr = _lane_step(tr, ref)
+        lp, gp, sp, n_plain = ref["outs"][lane]
+        gap = _rel_l2(gr, gp)
+        lrel = abs(lr - lp) / abs(lp)
+        serr = max(float(((sr[k] - sp[k]).abs() / (1.0 + sp[k].abs())).max())
+                   for k in sp)
+        want_n = 3 * BCE_BN_LAYERS if lane == "channel_sums" else 0
+        log(f"  remat {lane} lane, fp32 step [{TRAIN_BS},{S},{S}]: loss "
+            f"{lr:.8f} vs plain {lp:.8f} (rel {lrel:.2e}, limit 1e-5); "
+            f"gradient rel L2 to the plain step {gap:.3e} (limit 2x the "
+            f"torch lane's float64 distance, {2 * ref['e_t']:.3e}); running "
+            f"stats max err {serr:.2e} (limit 1e-5); channel_sums launches "
+            f"{nr} (plain {n_plain})")
+        if not (lrel <= 1e-5 and gap <= 2 * ref["e_t"] and serr <= 1e-5
+                and nr == want_n):
+            raise AssertionError(f"remat {lane} lane: the step differs "
+                                 "from the plain step")
+        del tr
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        for remat in (False, True):
+            tr = Trainer(dataclasses.replace(cfg, remat=remat,
+                                             compute_dtype=dtype))
+            st = tr.init_state()
+            st.model.load_state_dict(ref["sd"])
+            gids = tr.group_ids(st)
+            sw = torch.ones(TRAIN_BS, device=dev)
+
+            def step():
+                tr.train_step(st, ref["imgs"], ref["masks"], sw, [1e-4] * 3,
+                              [1.0] * 3, gids)
+
+            step()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(step, REMAT_REPS)
+            peak = torch.cuda.max_memory_allocated()
+            out[(dtype, remat)] = (ms, peak, base)
+            del st, tr
+            torch.cuda.empty_cache()
+    for dtype in ("float32", "bfloat16"):
+        (ms0, p0, b0), (ms1, p1, b1) = out[(dtype, False)], out[(dtype, True)]
+        log(f"  resnet34-UNet step [{TRAIN_BS},{S},{S}] {dtype}: plain "
+            f"{ms0:.3f} ms, peak {p0 / 2**30:.3f} GiB; remat {ms1:.3f} ms "
+            f"({ms1 / ms0 - 1:+.1%}), peak {p1 / 2**30:.3f} GiB "
+            f"({p1 / p0 - 1:+.1%}); resident between steps "
+            f"{b0 / 2**30:.3f} GiB [{card}]")
+    total = torch.cuda.get_device_properties(0).total_memory
+    fits = []
+    for remat in (False, True):
+        ms, peak, base = out[("bfloat16", remat)]
+        pred = base + (peak - base) * HEADLINE_BS / TRAIN_BS
+        log(f"  predicted peak of the bf16 step at bs{HEADLINE_BS} "
+            f"{'with' if remat else 'without'} remat: {pred / 2**30:.1f} GiB "
+            f"(resident + (peak - resident) x {HEADLINE_BS}/{TRAIN_BS}); "
+            f"the card holds {total / 2**30:.1f} GiB")
+        if pred < 0.9 * total:
+            fits.append(remat)
+    if fits:
+        # the headline step (512^2 bs128, bf16), where predicted to fit
+        imgs, masks = bce_batch(S, HEADLINE_BS, dev)
+        sw = torch.ones(HEADLINE_BS, device=dev)
+        for remat in fits:
+            tr = Trainer(dataclasses.replace(
+                cfg, remat=remat, compute_dtype="bfloat16",
+                batch_size=HEADLINE_BS))
+            st = tr.init_state()
+            st.model.load_state_dict(ref["sd"])
+            gids = tr.group_ids(st)
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: tr.train_step(st, imgs, masks, sw,
+                                               [1e-4] * 3, [1.0] * 3, gids),
+                         REMAT_REPS)
+            peak = torch.cuda.max_memory_allocated()
+            out[("headline", remat)] = (ms, peak)
+            log(f"  resnet34-UNet bf16 step [{HEADLINE_BS},{S},{S}] "
+                f"{'with' if remat else 'without'} remat: {ms:.3f} ms, "
+                f"{HEADLINE_BS / ms * 1e3:.1f} img/s, peak "
+                f"{peak / 2**30:.3f} GiB [{card}]")
+            del st, tr
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_classic(dev) -> None:
+    """The classic UNet (build_model("classic"), seeded init) on one
+    letterboxed 512^2 fixture frame, batch 1 (the annotation tool's
+    proposal size, cartseg_tpu/tools/annotate.py:97): probabilities on
+    the card against the CPU's in fp32 (TF32 off), atol 1e-5."""
+    from cartseg_tpu_torch import native
+    from cartseg_tpu_torch.device import set_fp32_policy
+    from cartseg_tpu_torch.models import build_model
+    from cartseg_tpu_torch.utils import image_io
+
+    set_fp32_policy()
+    torch.manual_seed(SEED)
+    model = build_model("classic").eval()
+    rgb = image_io.read_rgb(FIXTURES / "frame_0.jpeg", dev)
+    x = torch.from_numpy(native.letterbox_resize(rgb, (S, S), 0.1)).permute(
+        2, 0, 1)[None].float() / 255.0
+    with torch.no_grad():
+        want = model(x)
+        m = model.to(dev)
+        xd = x.to(dev)
+        got = m(xd)
+        ms = cuda_ms(lambda: m(xd), 3)
+    err = float((got.cpu() - want).abs().max())
+    log(f"  classic UNet [1,3,{S},{S}] fp32: card against CPU max |d| "
+        f"{err:.2e} (limit 1e-5); probabilities in [{float(got.min()):.4f}, "
+        f"{float(got.max()):.4f}]; forward {ms:.3f} ms on the card")
+    if got.shape != (1, 1, S, S) or err > 1e-5 or float(got.min()) < 0 \
+            or float(got.max()) > 1:
+        raise AssertionError("classic UNet: card and CPU disagree")
+
+
+def phase_finetune_timing(dev, runs: dict, unetpp: dict, card: str) -> None:
+    """Each phase-4i run's train step at its CONFIG on a device-resident
+    batch (CUDA events, REMAT_REPS steps after a warm-up) against the
+    loader alone over the run's epoch-0 order (its threads' reads,
+    decodes, letterboxing and the copy to the card; wall per batch): the
+    run is loader-bound where a batch takes longer to load than to
+    train. Beside them the run's last epoch in history.json."""
+    from cartseg_tpu_torch.data.pipeline import Loader
+    from cartseg_tpu_torch.train import Trainer
+    from cartseg_tpu_torch.train.config import apply_cli_overrides
+    from cartseg_tpu_torch.train.engine import epoch_order
+    from cartseg_tpu_torch.workloads.train_bce_dice import CONFIG
+
+    cases = [(name, apply_cli_overrides(r["cli"].CONFIG, r["argv"]), "torch",
+              r["out"]) for name, r in runs.items()]
+    cases += [(f"train_bce_dice --decoder unetpp_ds ({lane} lane)",
+               apply_cli_overrides(CONFIG, [
+                  "--device", "cuda", "--decoder", "unetpp_ds",
+                  "--images_root", u["roots"][0], "--masks_root",
+                  u["roots"][1]]), lane, u["out"])
+              for lane, u in unetpp.items()]
+    loads = {}
+    for name, cfg, lane, out in cases:
+        tr = Trainer(cfg, bn_lane=lane)
+        key = (cfg.sources_json, cfg.images_root, cfg.img_size,
+               cfg.batch_size)
+        if key not in loads:   # the UNet++ lanes read one data set
+            train_ds, _, sampler, _ = tr.build_datasets()
+            order = (sampler.epoch(0) if sampler is not None
+                     else epoch_order(cfg.seed, 0, len(train_ds)))
+            loader = Loader(train_ds, cfg.batch_size, device=dev,
+                            num_threads=cfg.num_threads)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n = len(list(loader(order)))
+            torch.cuda.synchronize()
+            loads[key] = ((time.perf_counter() - t0) * 1e3 / max(n, 1), n)
+        load_ms, n_batches = loads[key]
+        st = tr.init_state()
+        hw, bs = cfg.img_size[0], cfg.batch_size
+        imgs, masks = bce_batch(hw, bs, dev)
+        sw = torch.ones(bs, device=dev)
+        gids = tr.group_ids(st)
+        ms = cuda_ms(lambda: tr.train_step(st, imgs, masks, sw, [1e-4] * 3,
+                                           [1.0] * 3, gids), REMAT_REPS)
+        epoch = json.loads((out / "history.json").read_text())[-1]
+        step_rate, run_rate = bs / ms * 1e3, epoch["images_per_sec"]
+        log(f"  {name} ({cfg.encoder}, {hw}^2 bs{bs}, {cfg.compute_dtype}): "
+            f"step {ms:.3f} ms, {step_rate:.1f} img/s on a device-resident "
+            f"batch; the loader alone {load_ms:.1f} ms a batch over an "
+            f"epoch's {n_batches} ({cfg.num_threads} threads): "
+            f"{'loader' if load_ms > ms else 'step'}-bound, "
+            f"{max(load_ms, ms) / min(load_ms, ms):.1f}x; its run's epoch "
+            f"{epoch['epoch']} {run_rate:.2f} img/s (loader, val and "
+            f"checkpoints included) [{card}]")
+        del st, tr
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -3737,7 +4215,7 @@ def main() -> int:
         log("phase 4e: BCE+Dice training workload (train_bce_dice), both "
             "BN lanes")
         bce_runs = phase_bce_workload(tmp, dev, ir, mr)
-        phase_bce_reference(dev)
+        bce_ref = phase_bce_reference(dev)
 
         log("phase 4f: the loss zoo through cartseg_tpu_torch.losses")
         zoo_launches = phase_loss_zoo(dev)
@@ -3756,6 +4234,19 @@ def main() -> int:
             phase_config_workloads(tmp, jir, jmr, jmr_plain)
             pseudo_jpeg = phase_pseudo_jpeg(tmp, pretrained["pth"])
 
+        log("phase 4i: mixed-source fine-tuning, UNet++, remat, traces and "
+            "the classic UNet, cv2 and PIL refused")
+        with refuse_modules("cv2", "PIL"):
+            roots = make_mixed_sources(tmp)
+            finetunes = phase_finetune_workloads(tmp, roots)
+            unetpp = phase_bce_workload(tmp, dev, ir, mr, "unetpp_ds", 1,
+                                        UNETPP_BN_LAYERS)
+            phase_bce_reference(dev, ["--decoder", "unetpp_ds"],
+                                UNETPP_BN_LAYERS)
+            phase_remat(dev, bce_ref, card)
+            del bce_ref
+            phase_classic(dev)
+
         log("phase 5: timing")
         timing = phase_timing(ckpts, frames, dev, card)
         train_timing = phase_train_timing(dev, card, hist)
@@ -3767,6 +4258,7 @@ def main() -> int:
         with refuse_modules("cv2", "PIL"):
             phase_jpeg_timing(dev, jir, jmr, pretrained["pth"], pseudo_jpeg,
                               card)
+            phase_finetune_timing(dev, finetunes, unetpp, card)
 
     launches.update({k: train_launches[k] for k in TRAIN_KERNELS})
     launches.update({k: sam_launches[k] for k in SAM_KERNELS})

@@ -84,5 +84,13 @@ def test_state_dict_naming_is_the_reference_checkpoints():
 
 @pytest.mark.parametrize("enc", ["classic"])
 def test_unported_encoders_name_the_roadmap_item(enc):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(enc)
+    """The last encoder that raised with its ROADMAP item, "classic", is
+    ported (ROADMAP.md Queue 1 item 5, done): it builds the classic UNet
+    with the reference's state-dict names, and an unknown encoder
+    raises."""
+    model = build_model(enc)
+    assert type(model).__name__ == "ClassicUNet"
+    assert {"downs.0.conv1.weight", "ups.0.weight", "head.bias"} <= set(
+        model.state_dict())
+    with pytest.raises(ValueError, match="unknown encoder"):
+        build_model("resnet50")

@@ -551,14 +551,42 @@ def test_cuda_is_refused_without_a_card(png_pair_tree, tmp_path):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("sources_json", "s.json"), ("decoder", "unetpp"), ("remat", "true"),
-    ("trace_dir", "t"), ("encoder", "classic"),
-    ("init_checkpoint", "orbax_dir")])
+    ("init_checkpoint", "orbax_dir"), ("decoder", "fpn")])
 def test_out_of_scope_settings_raise(field, value, tmp_path):
     cfg = t_overrides(t_workload.CONFIG, [f"--{field}", value, "--device",
                                           "cpu"])
     with pytest.raises(NotImplementedError):
         TTrainer(cfg)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("sources_json", "s.json"), ("decoder", "unetpp"), ("remat", "true"),
+    ("trace_dir", "t"), ("encoder", "classic")])
+def test_once_out_of_scope_settings_build_a_trainer(field, value, tmp_path,
+                                                    png_pair_tree):
+    """Mixed sources, UNet++, remat, traces and the classic UNet: each
+    setting builds a Trainer, and --sources_json reads its file."""
+    if field == "sources_json":
+        ir, mr = png_pair_tree
+        value = str(tmp_path / value)
+        Path(value).write_text(json.dumps([
+            {"name": "hard", "images_root": str(ir), "masks_root": str(mr),
+             "ratio": 1.0, "loss_weight": 1.0}]))
+    elif field == "trace_dir":
+        value = str(tmp_path / value)
+    cfg = t_overrides(t_workload.CONFIG, [f"--{field}", value, "--device",
+                                          "cpu", "--out_dir", str(tmp_path)])
+    tr = TTrainer(cfg)
+    model = tr.init_state().model
+    if field == "sources_json":
+        train_ds, val_ds, sampler, src = tr.build_datasets()
+        assert [s.name for s in tr.cfg.sources] == ["hard"]
+        assert len(train_ds) + len(val_ds) == 12 and set(src) == {0}
+        assert sampler.num_samples == len(train_ds)
+    elif field == "decoder":
+        assert type(model).__name__ == "UNetPlusPlus"
+    elif field == "encoder":
+        assert type(model).__name__ == "ClassicUNet"
 
 
 def test_use_mesh_default_is_accepted():
