@@ -6,8 +6,9 @@ Images and masks are read through utils/image_io for the run's device
 (a JPEG on a card through nvJPEG, on the CPU through cv2; PNG through
 the PNG codec or cv2). Images are letterboxed and resized by the native
 C++ loader (`native.letterbox_resize`), as the JAX dataset does. Masks
-are resized by cv2's INTER_NEAREST index rule (`resize_nearest`), which
-the JAX dataset takes from cv2. No step needs OpenCV. The synthetic
+are resized by cv2's INTER_NEAREST index rule
+(`geometry.resize_nearest`), which the JAX dataset takes from cv2. No
+step needs OpenCV. The synthetic
 tree writer is utils/synthetic.py `make_png_pair_tree`.
 """
 
@@ -20,28 +21,8 @@ import numpy as np
 from cartseg_tpu_torch import geometry as G
 from cartseg_tpu_torch import native
 from cartseg_tpu_torch.data.pairing import Pair
+from cartseg_tpu_torch.geometry import resize_nearest
 from cartseg_tpu_torch.utils import image_io
-
-
-def _nearest_index(n_src: int, n_dst: int) -> np.ndarray:
-    """cv2 INTER_NEAREST's source index of each destination index:
-    floor(i * (1 / (dst / src))) in double precision, clamped to src - 1.
-    Equal to cv2.resize on every size pair tried (tests/
-    test_torch_native.py); the integer floor(i * src / dst) and
-    `native.resize_nearest` differ from it at some pairs."""
-    idx = np.floor(np.arange(n_dst) * (1.0 / (n_dst / n_src)))
-    return np.minimum(idx.astype(np.int64), n_src - 1)
-
-
-def resize_nearest(mask: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
-    """cv2.resize(mask, (w, h), interpolation=cv2.INTER_NEAREST) of an
-    HxW array, without OpenCV."""
-    h, w = mask.shape[:2]
-    if (h, w) == tuple(size):
-        return mask
-    return np.ascontiguousarray(
-        mask[_nearest_index(h, size[0])[:, None],
-             _nearest_index(w, size[1])[None, :]])
 
 
 class SegmentationDataset:

@@ -1,9 +1,11 @@
-"""Letterbox geometry (counterpart of cartseg_tpu/geometry.py:27-116).
+"""Letterbox geometry (counterpart of cartseg_tpu/geometry.py:27-168).
 
 Pure integer math in numpy, bit-equal to the JAX package's, because
 masks made by one stage are consumed letterboxed by every other stage;
 `letterbox_resize` letterboxes and resizes a frame in one pass of the
-native C++ loader.
+native C++ loader, and `remove_letterbox` undoes the letterbox of a
+mask with cv2 INTER_NEAREST's index rule (`resize_nearest`), without
+OpenCV.
 The reference arithmetic is `letterbox_image_with_side_padding`
 (train_bce_dice.py:42-85): `round()` for the side padding and floor
 division for the centring offsets.
@@ -60,6 +62,18 @@ class LetterboxSpec:
         y0 = self.y_offset
         return x0, y0, x0 + self.orig_w, y0 + self.orig_h
 
+    def content_box_resized(self, final_w: int,
+                            final_h: int) -> Tuple[int, int, int, int]:
+        """The content box after the square canvas was resized to
+        (final_w, final_h): scaled, rounded with round(), clamped
+        (`calculate_content_boundaries`, clean_complete.py:35-57)."""
+        x0, y0, x1, y1 = self.content_box()
+        sx = final_w / self.max_dim
+        sy = final_h / self.max_dim
+        X0, X1 = (max(0, min(final_w, int(round(v * sx)))) for v in (x0, x1))
+        Y0, Y1 = (max(0, min(final_h, int(round(v * sy)))) for v in (y0, y1))
+        return X0, Y0, X1, Y1
+
 
 def letterbox_side_pad(
     image: np.ndarray,
@@ -82,6 +96,80 @@ def letterbox_side_pad(
     x0, y0, x1, y1 = spec.content_box()
     canvas[y0:y1, x0:x1] = image
     return canvas
+
+
+def calculate_content_boundaries(
+    orig_w: int, orig_h: int, final_w: int, final_h: int,
+    side_padding_ratio: float = SIDE_PADDING_RATIO,
+) -> Tuple[int, int, int, int]:
+    """The content box (x0, y0, x1, y1) in a resized letterboxed frame
+    (clean_complete.py:35-57, remove_padding_from_masks.py:26-52)."""
+    return LetterboxSpec(orig_w, orig_h,
+                         side_padding_ratio).content_box_resized(final_w,
+                                                                 final_h)
+
+
+def cut_mask_padding(mask: np.ndarray, orig_w: int, orig_h: int,
+                     side_padding_ratio: float = SIDE_PADDING_RATIO
+                     ) -> np.ndarray:
+    """Zero everything outside the letterbox content box of a 2-D mask
+    of any dtype (clean_complete.py:59-65)."""
+    H, W = mask.shape[:2]
+    x0, y0, x1, y1 = calculate_content_boundaries(
+        orig_w, orig_h, W, H, side_padding_ratio)
+    out = np.zeros_like(mask)
+    if x1 > x0 and y1 > y0:
+        out[y0:y1, x0:x1] = mask[y0:y1, x0:x1]
+    return out
+
+
+def _nearest_index(n_src: int, n_dst: int) -> np.ndarray:
+    """cv2 INTER_NEAREST's source index of each destination index:
+    floor(i * (1 / (dst / src))) in double precision, clamped to src - 1.
+    Equal to cv2.resize on every size pair tried (tests/
+    test_torch_native.py); the integer floor(i * src / dst) and
+    `native.resize_nearest` differ from it at some pairs."""
+    idx = np.floor(np.arange(n_dst) * (1.0 / (n_dst / n_src)))
+    return np.minimum(idx.astype(np.int64), n_src - 1)
+
+
+def resize_nearest(mask: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """cv2.resize(mask, (w, h), interpolation=cv2.INTER_NEAREST) of an
+    HxW array, without OpenCV."""
+    h, w = mask.shape[:2]
+    if (h, w) == tuple(size):
+        return mask
+    return np.ascontiguousarray(
+        mask[_nearest_index(h, size[0])[:, None],
+             _nearest_index(w, size[1])[None, :]])
+
+
+def remove_letterbox(mask: np.ndarray, orig_w: int, orig_h: int,
+                     side_padding_ratio: float = SIDE_PADDING_RATIO,
+                     interpolation: str = "nearest") -> np.ndarray:
+    """Inverse letterbox: crop the content box of a (resized) letterboxed
+    mask and resize it to orig_h x orig_w (remove_padding_from_masks.py:
+    54-68). "nearest" is cv2 INTER_NEAREST's rule, bit for bit, without
+    OpenCV; any other `interpolation` is cv2 INTER_LINEAR, which is not
+    reproduced and needs cv2."""
+    H, W = mask.shape[:2]
+    x0, y0, x1, y1 = calculate_content_boundaries(
+        orig_w, orig_h, W, H, side_padding_ratio)
+    content = mask[y0:y1, x0:x1]
+    if content.size == 0:
+        return np.zeros((orig_h, orig_w), dtype=mask.dtype)
+    if interpolation == "nearest":
+        return np.ascontiguousarray(resize_nearest(content,
+                                                   (orig_h, orig_w)))
+    try:
+        import cv2
+    except ImportError as e:
+        raise RuntimeError(
+            f"remove_letterbox(interpolation={interpolation!r}) resizes "
+            "with cv2 INTER_LINEAR and needs OpenCV (cv2), which is not "
+            "installed; interpolation='nearest' needs none") from e
+    return cv2.resize(content, (orig_w, orig_h),
+                      interpolation=cv2.INTER_LINEAR)
 
 
 def letterbox_resize(image: np.ndarray, size: int,

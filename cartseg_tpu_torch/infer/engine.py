@@ -5,6 +5,8 @@ The reference loads up to 3 checkpoints and averages weighted sigmoids
 create_pseudo_labels_gpu.py:201-215). `pseudo_label_program` runs the
 ensemble forward with flip TTA, the CC cleanup and every QC statistic
 on the device for one batch; the host only decodes and encodes images.
+`ensemble_probs_fn` is the forward alone (mining's previews);
+infer/mining.py builds its program from the same pieces.
 
 On the card the model computes in bf16 (as the JAX workload does,
 engine.py:38) and the logits are cast to fp32 before the sigmoid;
@@ -27,8 +29,7 @@ from cartseg_tpu_torch.models.factory import build_model
 from cartseg_tpu_torch.ops.connected_components import (
     remove_small_components)
 from cartseg_tpu_torch.ops.cuda.median import median_nonneg_last_axis
-from cartseg_tpu_torch.ops.edges import (canny_edges, mask_boundary,
-                                         rgb_to_gray)
+from cartseg_tpu_torch.ops.edges import edge_hit_rate
 
 
 @dataclasses.dataclass
@@ -113,20 +114,31 @@ def _tta(forward: Callable) -> Callable:
     return forward_tta
 
 
+def ensemble_probs_fn(members: Sequence[EnsembleMember], mean, std,
+                      tta_flip: bool = False) -> Callable:
+    """fn(images_u8 [B,H,W,3]) -> probs [B,H,W] fp32, the weighted
+    sigma-mean of the members (with tta_flip, (probs, flipped-input
+    probs flipped back))."""
+    forward = _ensemble_forward(members, mean, std)
+    return torch.inference_mode()(_tta(forward) if tta_flip else forward)
+
+
 def entropy_map(p: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     p = p.clamp(eps, 1.0 - eps)
     return -(p * torch.log(p) + (1.0 - p) * torch.log(1.0 - p))
 
 
-def qc_stats_fn(canny_low: float = 50.0,
+def qc_stats_fn(edge_threshold: float = 120.0,
+                edge_method: str = "canny",
+                canny_low: float = 50.0,
                 canny_high: float = 150.0) -> Callable:
     """fn(probs, probs_flip, images_u8, threshold) -> dict of per-image
     QC stats [B] (create_pseudo_labels.py:233-240): fg_area, fg_conf
     (median |p-.5|*2), mean_entropy, tta_iou, edge_hit (the share of
-    mask-boundary pixels on a Canny(50,150) edge,
-    create_pseudo_labels.py:178-189). The JAX package's single-threshold
-    Sobel gate (`edge_method='sobel'`) is not ported: no caller of this
-    slice selects it."""
+    mask-boundary pixels on an image edge). edge_method 'canny' is the
+    reference's Canny(50,150) gate (create_pseudo_labels.py:178-189);
+    any other value takes the single-threshold Sobel gate at
+    edge_threshold, which launches no reach kernel."""
 
     def stats(probs, probs_flip, images_u8, threshold):
         B = probs.shape[0]
@@ -139,11 +151,8 @@ def qc_stats_fn(canny_low: float = 50.0,
         inter = (pred & pred_f).to(torch.float32).sum((1, 2))
         union = (pred | pred_f).to(torch.float32).sum((1, 2))
         tta_iou = torch.where(union > 0, inter / union.clamp(min=1), 0.0)
-        edges = canny_edges(rgb_to_gray(images_u8), canny_low, canny_high)
-        boundary = mask_boundary(pred)
-        tot = boundary.to(torch.float32).sum((1, 2))
-        hits = (edges & boundary).to(torch.float32).sum((1, 2))
-        edge_hit = torch.where(tot > 0, hits / tot.clamp(min=1), 0.0)
+        edge_hit = edge_hit_rate(images_u8, pred, edge_threshold,
+                                 edge_method, canny_low, canny_high)
         return {"fg_area": fg_area, "fg_conf": fg_conf,
                 "mean_entropy": mean_ent, "tta_iou": tta_iou,
                 "edge_hit": edge_hit}
@@ -152,7 +161,9 @@ def qc_stats_fn(canny_low: float = 50.0,
 
 
 def pseudo_label_program(members: Sequence[EnsembleMember], mean, std,
-                         min_area: int, canny_low: float = 50.0,
+                         min_area: int, edge_threshold: float = 120.0,
+                         edge_method: str = "canny",
+                         canny_low: float = 50.0,
                          canny_high: float = 150.0) -> Callable:
     """The per-batch pseudo-label computation:
     fn(images_u8 [B,H,W,3] on the members' device, threshold) ->
@@ -163,7 +174,8 @@ def pseudo_label_program(members: Sequence[EnsembleMember], mean, std,
     on the raw thresholded probs, as engine.py:171-209."""
     set_fp32_policy()
     forward_tta = _tta(_ensemble_forward(members, mean, std))
-    qc = qc_stats_fn(canny_low=canny_low, canny_high=canny_high)
+    qc = qc_stats_fn(edge_threshold=edge_threshold, edge_method=edge_method,
+                     canny_low=canny_low, canny_high=canny_high)
 
     @torch.inference_mode()
     def program(images_u8: torch.Tensor, threshold: float):

@@ -6,15 +6,14 @@ create_pseudo_labels.py —
   * weighted ensemble sigma-mean + flip TTA on the device
   * QC gates (:146-151, 191-197): fg_area in [0.005, 0.60],
     fg_conf >= 0.65, mean_entropy <= 0.35, TTA IoU >= 0.75,
-    edge-hit >= 0.10 (Canny)
+    edge-hit >= 0.10 (Canny by default; the Sobel gate by edge_method)
   * connected-component cleanup with min_area = 0.1% of the frame
   * accepted/uncertain routing, hard-mask PNG + fp16 soft-prob npz +
     overlay PNG + QC CSV (:243-260)
   * per-bucket cap (default 50) and global cap (:264-287)
 
 Not carried over from the JAX version: `use_mesh` (batch sharding over
-a device mesh; data parallelism is a later slice) and the Sobel edge
-gate (`edge_method`, `edge_threshold`), which no caller selects.
+a device mesh; data parallelism is a later slice).
 """
 
 from __future__ import annotations
@@ -84,9 +83,12 @@ class PseudoLabelConfig:
     save_probs: bool = True
     save_overlays: bool = True
     shuffle_seed: int = 0
-    # QC edge gate: cv2.Canny(50,150) (create_pseudo_labels.py:178-189)
+    # QC edge gate: 'canny' reproduces cv2.Canny(50,150)
+    # (create_pseudo_labels.py:178-189); 'sobel' uses edge_threshold
+    edge_method: str = "canny"
     canny_low: float = 50.0
     canny_high: float = 150.0
+    edge_threshold: float = 120.0
 
 
 def _overlay(rgb_u8: np.ndarray, pred01: np.ndarray) -> np.ndarray:
@@ -140,9 +142,10 @@ def generate_pseudo_labels(members: Sequence[EnsembleMember],
     mean = IMAGENET_MEAN if cfg.imagenet_norm else (0, 0, 0)
     std = IMAGENET_STD if cfg.imagenet_norm else (1, 1, 1)
     min_area = int(cfg.img_size * cfg.img_size * cfg.min_area_frac)
-    program = pseudo_label_program(members, mean, std, min_area,
-                                   canny_low=cfg.canny_low,
-                                   canny_high=cfg.canny_high)
+    program = pseudo_label_program(
+        members, mean, std, min_area, edge_threshold=cfg.edge_threshold,
+        edge_method=cfg.edge_method, canny_low=cfg.canny_low,
+        canny_high=cfg.canny_high)
 
     paths = sorted(p for p in root.rglob("*")
                    if p.suffix.lower() in IMG_EXTS)

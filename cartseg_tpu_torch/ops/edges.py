@@ -4,7 +4,9 @@ the device stand-in for the reference's cv2 Canny/findContours QC gate
 
 `canny_edges` mirrors cv2.Canny(gray, low, high): Sobel-3 with
 replicate border, L1 magnitude, 4-sector non-maximum suppression, and
-double-threshold hysteresis. Hysteresis runs the reach kernel
+double-threshold hysteresis. `sobel_edges`, the cheaper single-threshold
+gate, takes the L2 magnitude of a Sobel-3 with zero padding (the JAX
+`_conv3`'s "SAME"), not Canny's replicate border. Hysteresis runs the reach kernel
 (ops/cuda/cc.py) to a full fixpoint, as the TPU kernel did. The JAX
 CPU lane (`_hysteresis`, edges.py:118-146) instead stops after 256
 dilation steps, so at 512x512 a weak chain longer than 256 px can
@@ -44,6 +46,16 @@ def _sobel_replicate(gray: torch.Tensor):
     g = F.pad(g, (1, 1, 1, 1), mode="replicate")
     out = F.conv2d(g, _sobel_kernels(gray.device))      # cross-correlation
     return (out[:, 0].reshape(gray.shape), out[:, 1].reshape(gray.shape))
+
+
+def sobel_edges(gray: torch.Tensor, threshold: float = 120.0) -> torch.Tensor:
+    """[..., H, W] float gray (0..255) -> bool edge map at |grad| >=
+    threshold: Sobel-3 with zero padding, L2 magnitude."""
+    H, W = gray.shape[-2:]
+    g = gray.to(torch.float32).reshape(-1, 1, H, W)
+    out = F.conv2d(g, _sobel_kernels(gray.device), padding=1)
+    gx, gy = out[:, 0], out[:, 1]
+    return (torch.sqrt(gx * gx + gy * gy) >= threshold).reshape(gray.shape)
 
 
 def _hysteresis(weak: torch.Tensor, strong: torch.Tensor) -> torch.Tensor:
@@ -88,4 +100,21 @@ def canny_weak_strong(gray: torch.Tensor, low: float = 50.0,
 def mask_boundary(mask: torch.Tensor) -> torch.Tensor:
     """1-px inner boundary of a bool mask — the analog of
     drawContours(thickness=1) over RETR_EXTERNAL contours."""
-    return mask & ~erode(mask, 3)
+    return mask & ~erode(mask, 3, shape="square")
+
+
+def edge_hit_rate(rgb: torch.Tensor, mask: torch.Tensor,
+                  threshold: float = 120.0, method: str = "canny",
+                  low: float = 50.0, high: float = 150.0) -> torch.Tensor:
+    """The share of mask-boundary pixels on an image edge (edge_hit_rate,
+    create_pseudo_labels.py:178-189), 0.0 where the boundary is empty:
+    rgb [..., H, W, 3], mask [..., H, W] -> float32 [...]. method
+    'canny' (Canny(low, high), the reference's gate) or anything else
+    for Sobel at `threshold`, as the JAX function reads it."""
+    gray = rgb_to_gray(rgb)
+    edges = canny_edges(gray, low, high) if method == "canny" else \
+        sobel_edges(gray, threshold)
+    boundary = mask_boundary(mask.to(torch.bool))
+    tot = boundary.to(torch.float32).sum((-2, -1))
+    hits = (edges & boundary).to(torch.float32).sum((-2, -1))
+    return torch.where(tot > 0, hits / tot.clamp(min=1), 0.0)

@@ -171,6 +171,24 @@ Phases, in order; any failure raises and the exit code is non-zero:
         in fp32 and bf16, the peak predicted at bs128 and, where it fits,
         the bs128 step run; the classic UNet at [1,3,512,512] fp32, card
         against CPU (atol 1e-5);
+     j. the cleaning, mining, ranking and evaluation toolchain with cv2,
+        PIL and pandas refused, on 4h's trees and model: clean_masks
+        --mode complete on the JPEG tree's 1536^2 letterboxed masks with
+        --images_root (zero outside each frame's content box),
+        holes_largest and largest_only on 4h's pseudo-label masks, every
+        output equal to the same cleaner on the CPU bit for bit (once per
+        distinct input) and cc launched at connectivity 4 and 8;
+        remove_padding_from_masks --overlays on every pseudo-label mask
+        (each at its frame's size, 720 wide for EXIF orientations 5-8);
+        get_images copy-images and copy-masks (copies equal to their
+        sources); get_best_pseudo_masks (ranking.csv equal to a numpy
+        ranking computed here); mine_hard_cases at its defaults (512^2,
+        bs16, model.pth as 3 members) on the 64 JPEGs (the CSV's columns
+        and order, cc at 4 and 8 on [16,512,512]), then the metric body
+        on the card against the CPU on the same probs (components equal,
+        the rest within 1e-6); evaluate --sweep on the JPEG tree; the
+        pseudo-label program with edge_method='sobel' on 4a's frames
+        (cc and median launched, reach not); the phase's wall;
   5. timing with CUDA events: the pseudo-label program per bs64 batch;
      CC on the path's masks, cart-like blobs and the mixed masks, and
      reach on the path's Canny maps, beside their bounds, with the CUDA
@@ -240,7 +258,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
      pseudo-label batch of 64 JPEGs against the read and letterbox of
      its frames; each phase-4i run's train step on a device-resident
      batch against its loader alone over an epoch (loader- or
-     step-bound).
+     step-bound); with cv2, PIL and pandas refused, the mining program's
+     ms a batch and img/s at bs16 and bs64 (CUDA events, a
+     device-resident batch of 4h's JPEG frames), and post_clean on one
+     1536^2 mask: its wall, and its device time split into the CC
+     kernel, the component statistics and the morphology.
 The line before the last holds the kernels' JSON record, the one before
 it the card's name and power limit, and the last line
 {"ok": true, "device": {...}}.
@@ -3586,8 +3608,8 @@ def phase_pseudo_jpeg(tmp: Path, pth: Path) -> dict:
         f"{result['read_s']:.3f} s; launches {launches}")
     check_pseudo_outputs(images, out_dir, sorted(images.rglob("*.jpeg")))
     build.reset_launch_counts()
-    return {"images": images, "read_s": result["read_s"],
-            "wall_s": result["wall_s"]}
+    return {"images": images, "out_dir": out_dir,
+            "read_s": result["read_s"], "wall_s": result["wall_s"]}
 
 
 def phase_jpeg_timing(dev, ir: Path, mr: Path, pth: Path,
@@ -4137,6 +4159,384 @@ def phase_finetune_timing(dev, runs: dict, unetpp: dict, card: str) -> None:
         torch.cuda.empty_cache()
 
 
+# ------------------- cleaning, mining, ranking and evaluation (phase 4j)
+
+# the mining program's batches timed in phase 5 (the workload's default
+# 16, and 64)
+MINING_BS = (16, 64)
+# the metric body on the card against the CPU on the same probs, as the
+# tests hold the body against JAX (tests/test_torch_mining.py)
+MINING_BODY_TOL = 1e-6
+MINING_REPS = 10
+POST_CLEAN_REPS = 20
+
+
+class cc_spy:
+    """Record the connectivity and shape of every `cc_batch` call that
+    ops/connected_components.py makes for the context's length; the
+    launch count stays where the wrapper launches the kernel."""
+
+    def __enter__(self):
+        from cartseg_tpu_torch.ops import connected_components as CC
+
+        self.module, self.orig, self.calls = CC, CC.cc_batch, []
+
+        def spy(mask, connectivity=8):
+            self.calls.append((connectivity, tuple(mask.shape)))
+            return self.orig(mask, connectivity)
+
+        CC.cc_batch = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.module.cc_batch = self.orig
+        return False
+
+    def seen(self) -> dict:
+        """{connectivity: the shapes it labelled}"""
+        out: dict = {}
+        for conn, shape in self.calls:
+            out.setdefault(conn, set()).add(shape)
+        return {k: sorted(v) for k, v in sorted(out.items())}
+
+
+def phase_clean_workloads(tmp: Path, jir: Path, jmr: Path, pseudo: Path,
+                          dev) -> dict:
+    """workloads/clean_masks in its three modes: `complete` on the JPEG
+    tree's 1536^2 letterboxed masks with --images_root (the content box
+    from each frame's size, read by nvJPEG), holes_largest and
+    largest_only on the pseudo-label masks (512^2). Every output equals
+    the same cleaner run on the CPU (once per distinct input) bit for
+    bit, `complete`'s is zero outside the content box, cc launched at
+    connectivity 4 and 8."""
+    from cartseg_tpu_torch import geometry as G
+    from cartseg_tpu_torch.ops.cuda import build
+    from cartseg_tpu_torch.postprocess import clean as C
+    from cartseg_tpu_torch.utils import image_io
+    from cartseg_tpu_torch.workloads import clean_masks as cli
+
+    cleaners = {"complete": C.post_clean, "holes_largest": C.clean_mask,
+                "largest_only": C.clean_mask_largest_component}
+    conns, out = set(), {}
+    for mode, root in (("complete", jmr), ("holes_largest", pseudo),
+                       ("largest_only", pseudo)):
+        dst = tmp / f"clean_{mode}"
+        extra = ["--images_root", str(jir)] if mode == "complete" else []
+        build.reset_launch_counts()
+        with cc_spy() as spy:
+            t0 = time.perf_counter()
+            n = cli.main(["--masks_root", str(root), "--out_root", str(dst),
+                          "--mode", mode] + extra)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = build.LAUNCHES["cc"]
+        masks = sorted(root.rglob("*.png"))
+        if n != len(masks) or launches < 1:
+            raise AssertionError(f"clean_masks {mode}: {n} of {len(masks)} "
+                                 f"masks, {launches} cc launches")
+        groups: dict = {}
+        for mp in masks:
+            rel = mp.relative_to(root)
+            size = None
+            if mode == "complete":
+                size = image_io.read_rgb(C.find_image(jir, rel),
+                                         dev).shape[:2]
+            groups.setdefault((mp.read_bytes(), size), []).append(rel)
+        t0 = time.perf_counter()
+        for (raw, size), rels in groups.items():
+            m255 = (image_io.decode_png(raw) > 127).astype(np.uint8) * 255
+            if size is not None:
+                m255 = G.cut_mask_padding(m255, size[1], size[0])
+                x0, y0, x1, y1 = G.calculate_content_boundaries(
+                    size[1], size[0], m255.shape[1], m255.shape[0])
+            want = cleaners[mode](torch.from_numpy(m255 > 127)).numpy()
+            for rel in rels:
+                got = image_io.decode_png((dst / rel).read_bytes()) > 127
+                if not np.array_equal(got, want):
+                    raise AssertionError(f"clean_masks {mode}: {rel} on the "
+                                         "card differs from the CPU")
+                if size is not None and (got[:y0].any() or got[y1:].any()
+                                         or got[:, :x0].any()
+                                         or got[:, x1:].any()):
+                    raise AssertionError(f"{rel}: foreground outside the "
+                                         "content box")
+        cpu_s = time.perf_counter() - t0
+        seen = spy.seen()
+        conns |= set(seen)
+        hw = image_io.decode_png(masks[0].read_bytes()).shape
+        log(f"  clean_masks --mode {mode}: {n} masks of {hw[1]}x{hw[0]} "
+            f"in {wall:.2f} s wall, {launches} cc launches (connectivity: "
+            f"shapes {seen}); equal to the CPU's cleaner bit for bit on all "
+            f"{len(groups)} distinct inputs ({cpu_s:.1f} s on the CPU)")
+        out[mode] = {"dst": dst, "n": n, "launches": launches}
+    if conns != {4, 8}:
+        raise AssertionError(f"cc connectivities {conns}, want 4 and 8")
+    return out
+
+
+def phase_unpad_and_copy(tmp: Path, images: Path, pseudo: Path, jir: Path,
+                         cleaned: Path) -> None:
+    """workloads/remove_padding_from_masks on every pseudo-label mask
+    (accepted and uncertain) with --overlays: each mask and overlay at
+    its frame's size (1280x720, 720 wide for EXIF orientations 5-8);
+    get_images copy-images (the cleaned JPEG-tree masks' frames) and
+    copy-masks (the pseudo-label tree), each copy equal to its source."""
+    from cartseg_tpu_torch.utils import image_io
+    from cartseg_tpu_torch.utils.jpeg import exif_orientation
+    from cartseg_tpu_torch.workloads import get_images
+    from cartseg_tpu_torch.workloads import remove_padding_from_masks as cli
+
+    out, ov = tmp / "unpadded", tmp / "unpad_overlays"
+    t0 = time.perf_counter()
+    n = sum(cli.main(["--masks_root", str(root), "--images_root",
+                      str(images), "--out_root", str(out), "--overlays",
+                      str(ov)]) for root in (pseudo, pseudo / "uncertain"))
+    wall = time.perf_counter() - t0
+    frames = sorted(images.rglob("*.jpeg"))
+    if n != len(frames):
+        raise AssertionError(f"unpadded {n} masks for {len(frames)} frames")
+    rotated = 0
+    for p in frames:
+        rel = p.relative_to(images).with_suffix(".png")
+        turned = exif_orientation(p.read_bytes()) >= 5
+        rotated += turned
+        hw = (1280, 720) if turned else (720, 1280)
+        m = image_io.decode_png((out / rel).read_bytes())
+        o = image_io.decode_png((ov / rel).read_bytes())
+        if m.shape != hw or o.shape != hw + (3,) or \
+                not set(np.unique(m)) <= {0, 255}:
+            raise AssertionError(f"{rel}: mask {m.shape}, overlay {o.shape}")
+    log(f"  remove_padding_from_masks --overlays: {n} masks and overlays at "
+        f"their frame's size ({rotated} of them 720x1280 by EXIF "
+        f"orientation), {wall:.2f} s wall")
+
+    n_img = get_images.main(["copy-images", "--masks_root", str(cleaned),
+                             "--images_root", str(jir), "--out_root",
+                             str(tmp / "copied_images")])
+    n_msk = get_images.main(["copy-masks", "--src_root", str(pseudo),
+                             "--dst_root", str(tmp / "copied_masks")])
+    pairs = [(tmp / "copied_images" / p.relative_to(jir), p)
+             for p in jir.rglob("*.jpeg")]
+    pairs += [(tmp / "copied_masks" / p.relative_to(pseudo), p)
+              for p in pseudo.rglob("*.png")]
+    if n_img + n_msk != len(pairs) or \
+            any(a.read_bytes() != b.read_bytes() for a, b in pairs):
+        raise AssertionError(f"get_images copied {n_img} + {n_msk} files "
+                             f"for {len(pairs)}")
+    log(f"  get_images copy-images {n_img} frames, copy-masks {n_msk} "
+        "masks, each equal to its source")
+
+
+def phase_rank(tmp: Path, pseudo: Path) -> None:
+    """workloads/get_best_pseudo_masks on the pseudo-label tree: its
+    ranking.csv rows equal the ranking computed here in numpy
+    (get_best_pseudo_masks.py:30-38), scores exactly."""
+    from cartseg_tpu_torch.workloads import get_best_pseudo_masks as cli
+
+    dst = tmp / "best_pseudo"
+    cli.main(["--src_root", str(pseudo), "--dst_root", str(dst),
+              "--top_k", "10"])
+    want = []
+    for path in sorted(pseudo.rglob("*_prob.npz")):
+        p = np.load(path)["prob"].astype(np.float32)
+        fg = float((p >= 0.5).mean())
+        conf = float(np.median(np.abs(p - 0.5) * 2.0))
+        q = np.clip(p.astype(np.float64), 1e-6, 1.0 - 1e-6)
+        ent = float((-(q * np.log(q) + (1.0 - q) * np.log(1.0 - q))).mean())
+        pen = (-min(1.0, (0.005 - fg) / 0.005) if fg < 0.005 else
+               -min(1.0, (fg - 0.6) / 0.4) if fg > 0.6 else 0.0)
+        want.append((str(path), fg, conf, ent,
+                     float(0.7 * conf - 0.5 * ent + 0.3 * pen)))
+    want.sort(key=lambda r: -r[4])
+    with open(dst / "ranking.csv") as f:
+        got = [(r["prob"], *(float(r[k]) for k in (
+            "fg_area", "fg_conf", "mean_entropy", "score")))
+               for r in csv.DictReader(f)]
+    if got != want:
+        raise AssertionError("ranking.csv differs from the numpy ranking")
+    copied = len(list(dst.rglob("*_prob.npz")))
+    log(f"  get_best_pseudo_masks: {len(got)} rows equal to the numpy "
+        f"ranking; top {copied} copied (scores {got[0][4]:.4f} .. "
+        f"{got[-1][4]:.4f})")
+
+
+def phase_mining(tmp: Path, pth: Path, images: Path, dev) -> None:
+    """workloads/mine_hard_cases at its defaults (512^2, bs16) with
+    model.pth as three members on the JPEG frames: the CSV's columns,
+    one row a frame in descending composite, cc at 4 and 8 on
+    [16,512,512]; then the metric body on the card against the CPU on
+    the same probs (components equal, the rest within
+    MINING_BODY_TOL)."""
+    from cartseg_tpu_torch.infer.engine import ensemble_probs_fn, load_member
+    from cartseg_tpu_torch.infer.mining import metrics_body
+    from cartseg_tpu_torch.infer.pseudo_labels import (IMAGENET_MEAN,
+                                                       IMAGENET_STD,
+                                                       load_frame)
+    from cartseg_tpu_torch.ops.cuda import build
+    from cartseg_tpu_torch.workloads import mine_hard_cases as cli
+
+    keys = ["components", "composite", "entropy_mean", "frac_near_0p5",
+            "hole_fraction", "perimeter_over_area", "tta_var_mean"]
+    build.reset_launch_counts()
+    with cc_spy() as spy:
+        t0 = time.perf_counter()
+        cli.main(["--images_root", str(images), "--out_dir",
+                  str(tmp / "mining"), "--checkpoints",
+                  ",".join([str(pth)] * 3)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    with open(tmp / "mining" / "hard_candidates.csv") as f:
+        rows = list(csv.reader(f))
+    frames = sorted(images.rglob("*.jpeg"))
+    comp = [float(r[2]) for r in rows[1:]]
+    if rows[0] != ["path"] + keys or len(rows) != len(frames) + 1 or \
+            comp != sorted(comp, reverse=True) or \
+            not all(np.isfinite(float(v)) for r in rows[1:] for v in r[1:]):
+        raise AssertionError(f"hard_candidates.csv: {rows[0]}, "
+                             f"{len(rows) - 1} rows")
+    seen = spy.seen()
+    if set(seen) != {4, 8} or launches.get("cc", 0) < 1:
+        raise AssertionError(f"mining: cc calls {seen}, launches {launches}")
+    log(f"  mine_hard_cases (512^2, bs16, 3 members): {len(rows) - 1} rows "
+        f"in descending composite ({comp[0]:.4f} .. {comp[-1]:.4f}), "
+        f"{wall:.2f} s wall (members' load included); launches {launches},"
+        f" cc connectivity: shapes {seen}")
+
+    members = [load_member(pth, device=dev)] * 3
+    fwd = ensemble_probs_fn(members, IMAGENET_MEAN, IMAGENET_STD,
+                            tta_flip=True)
+    x = np.stack([load_frame(p, S, 0.1, dev) for p in frames[:16]])
+    probs = fwd(torch.from_numpy(x).to(dev))
+    body = metrics_body(0.5, 0.05)
+    card = {k: v.cpu() for k, v in body(*probs).items()}
+    cpu = body(*(p.cpu() for p in probs))
+    if not torch.equal(card["components"], cpu["components"]):
+        raise AssertionError(f"components: card {card['components']}, CPU "
+                             f"{cpu['components']}")
+    err = {k: float((card[k] - cpu[k]).abs().max()) for k in keys}
+    if max(err.values()) > MINING_BODY_TOL:
+        raise AssertionError(f"metric body, card against CPU: {err}")
+    log(f"  mining metric body on [16,512,512] probs, card against CPU: "
+        f"components equal ({card['components'].tolist()}), max |d| "
+        f"{max(err.values()):.3g} (tolerance {MINING_BODY_TOL})")
+
+
+def phase_evaluate(pth: Path, jir: Path, jmr: Path, tmp: Path) -> None:
+    """workloads/evaluate --sweep with model.pth on the JPEG tree at its
+    defaults (512^2, bs16): the JSON's keys, finite values, every pair
+    counted, the best threshold on the sweep."""
+    from cartseg_tpu_torch.workloads import evaluate as cli
+
+    t0 = time.perf_counter()
+    out = cli.main(["--images_root", str(jir), "--masks_root", str(jmr),
+                    "--checkpoint", str(pth), "--sweep", "--out_json",
+                    str(tmp / "evaluate.json")])
+    wall = time.perf_counter() - t0
+    n = len(list(jir.rglob("*.jpeg")))
+    keys = ["dice", "dice_bin", "f1", "iou", "iou_bin", "precision",
+            "recall", "threshold", "n_images", "best_threshold",
+            "best_threshold_dice"]
+    if list(out) != keys or out["n_images"] != n or \
+            not all(np.isfinite(v) for v in out.values()) or \
+            not np.isclose(cli.SWEEP, out["best_threshold"]).any():
+        raise AssertionError(f"evaluate: {out}")
+    log(f"  evaluate --sweep on {n} JPEG pairs: dice {out['dice']:.4f}, iou "
+        f"{out['iou']:.4f}, f1 {out['f1']:.4f} at {out['threshold']:.2f}; "
+        f"best {out['best_threshold']:.2f} ({out['best_threshold_dice']:.4f})"
+        f"; {wall:.2f} s wall")
+
+
+def phase_sobel(ckpts, frames: np.ndarray, dev) -> None:
+    """The pseudo-label program with the Sobel QC gate on 4a's frames and
+    members: cc and median launched, reach not."""
+    from cartseg_tpu_torch.infer.engine import (load_member,
+                                                pseudo_label_program)
+    from cartseg_tpu_torch.infer.pseudo_labels import (IMAGENET_MEAN,
+                                                       IMAGENET_STD)
+    from cartseg_tpu_torch.ops.cuda import build
+
+    members = [load_member(p, device=dev) for p in ckpts]
+    prog = pseudo_label_program(members, IMAGENET_MEAN, IMAGENET_STD,
+                                int(S * S * 0.001), edge_method="sobel")
+    x = torch.from_numpy(frames[:B]).to(dev)
+    build.reset_launch_counts()
+    _, _, stats = prog(x, 0.5)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    if launches.get("reach", 0) or not launches.get("cc") or \
+            not launches.get("median"):
+        raise AssertionError(f"Sobel program launches {launches}")
+    hit = stats["edge_hit"]
+    if hit.shape != (B,) or not torch.isfinite(hit).all():
+        raise AssertionError(f"Sobel edge_hit {hit}")
+    log(f"  pseudo-label program, edge_method='sobel' (threshold 120) on "
+        f"4a's {B} frames: launches {launches} (no reach); edge_hit mean "
+        f"{float(hit.mean()):.4f}")
+
+
+def phase_toolchain_timing(dev, pth: Path, images: Path, jmr: Path,
+                           card: str) -> None:
+    """The mining program's ms a batch and img/s at MINING_BS on a
+    device-resident batch of the JPEG frames (CUDA events), and
+    post_clean on one 1536^2 mask: its wall a call (CUDA events) and its
+    device time (profiler) split into the CC kernel calls, the component
+    statistics (bincount, scatter_reduce) and the morphology, each
+    timed alone on the same inputs."""
+    from cartseg_tpu_torch import geometry as G
+    from cartseg_tpu_torch.infer.engine import load_member
+    from cartseg_tpu_torch.infer.mining import mining_program
+    from cartseg_tpu_torch.infer.pseudo_labels import (IMAGENET_MEAN,
+                                                       IMAGENET_STD,
+                                                       load_frame)
+    from cartseg_tpu_torch.ops import connected_components as CC
+    from cartseg_tpu_torch.ops import morphology as M
+    from cartseg_tpu_torch.postprocess.clean import post_clean
+    from cartseg_tpu_torch.utils import image_io
+
+    members = [load_member(pth, device=dev)] * 3
+    program = mining_program(members, IMAGENET_MEAN, IMAGENET_STD, 0.5,
+                             0.05)
+    paths = sorted(images.rglob("*.jpeg"))
+    x = torch.from_numpy(np.stack([load_frame(p, S, 0.1, dev)
+                                   for p in paths[:max(MINING_BS)]])).to(dev)
+    for bs in MINING_BS:
+        ms = cuda_ms(lambda: program(x[:bs]), MINING_REPS)
+        log(f"  mining program (3x effnet-b0, flip TTA, metrics) at "
+            f"bs{bs}@{S}^2: {ms:.3f} ms a batch, {bs / ms * 1e3:.1f} img/s "
+            f"(CUDA events, device-resident batch) [{card}]")
+    del program, members
+    torch.cuda.empty_cache()
+
+    raw = image_io.decode_png(next(iter(sorted(jmr.rglob("*.png"))))
+                              .read_bytes())
+    m = torch.from_numpy(G.cut_mask_padding(raw, 1280, 720) > 127).to(dev)
+    opened = M.morph_open(m, 3)
+    largest = CC.keep_largest_component(opened)
+    closed = M.morph_close(largest, 7)
+    lab1 = CC.connected_components(opened)
+    lab2 = CC.connected_components(~closed)
+    border = (~closed) & M._border(*m.shape, dev)
+    wall = cuda_ms(lambda: post_clean(m), POST_CLEAN_REPS)
+    total = device_ms(lambda: post_clean(m), POST_CLEAN_REPS)
+    label = device_ms(lambda: (CC.connected_components(opened),
+                               CC.connected_components(~closed)),
+                      POST_CLEAN_REPS)
+    stats = device_ms(lambda: (CC._areas(lab1),
+                               CC.per_pixel_component_area(lab2),
+                               CC.per_pixel_component_any(lab2, border)),
+                      POST_CLEAN_REPS)
+    morph = device_ms(lambda: (M.morph_open(m, 3),
+                               M.morph_close(largest, 7)), POST_CLEAN_REPS)
+    log(f"  post_clean on one {m.shape[0]}x{m.shape[1]} mask: {wall:.4f} "
+        f"ms a call (CUDA events), {total:.4f} ms of it on the device "
+        f"(profiler) = CC kernel (2 labellings, 8-connectivity) "
+        f"{label:.4f} + component statistics (bincount areas x2, "
+        f"scatter_reduce any) {stats:.4f} + morphology (open 3, close 7, "
+        f"elliptical) {morph:.4f} + the rest "
+        f"{total - label - stats - morph:.4f} (selects, compares) [{card}]")
+
+
 def main() -> int:
     from cartseg_tpu_torch.device import require_cuda
 
@@ -4247,6 +4647,20 @@ def main() -> int:
             del bce_ref
             phase_classic(dev)
 
+        log("phase 4j: the cleaning, mining, ranking and evaluation "
+            "toolchain, cv2, PIL and pandas refused")
+        t0 = time.perf_counter()
+        with refuse_modules("cv2", "PIL", "pandas"):
+            pseudo_out = pseudo_jpeg["out_dir"]
+            cleaned = phase_clean_workloads(tmp, jir, jmr, pseudo_out, dev)
+            phase_unpad_and_copy(tmp, pseudo_jpeg["images"], pseudo_out, jir,
+                                 cleaned["complete"]["dst"])
+            phase_rank(tmp, pseudo_out)
+            phase_mining(tmp, pretrained["pth"], pseudo_jpeg["images"], dev)
+            phase_evaluate(pretrained["pth"], jir, jmr, tmp)
+            phase_sobel(ckpts, frames, dev)
+        log(f"  phase 4j wall: {time.perf_counter() - t0:.1f} s")
+
         log("phase 5: timing")
         timing = phase_timing(ckpts, frames, dev, card)
         train_timing = phase_train_timing(dev, card, hist)
@@ -4259,6 +4673,9 @@ def main() -> int:
             phase_jpeg_timing(dev, jir, jmr, pretrained["pth"], pseudo_jpeg,
                               card)
             phase_finetune_timing(dev, finetunes, unetpp, card)
+        with refuse_modules("cv2", "PIL", "pandas"):
+            phase_toolchain_timing(dev, pretrained["pth"],
+                                   pseudo_jpeg["images"], jmr, card)
 
     launches.update({k: train_launches[k] for k in TRAIN_KERNELS})
     launches.update({k: sam_launches[k] for k in SAM_KERNELS})

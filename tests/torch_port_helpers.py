@@ -169,6 +169,20 @@ def png_pair_tree(tmp_path_factory):
                               (64, 50), seed=0)
 
 
+@pytest.fixture
+def jax_pth_members_f32(monkeypatch):
+    """The JAX CLIs' .pth members (`load_torch_member`, bf16 by default)
+    in float32, the port's CPU dtype, for the length of a test."""
+    import jax.numpy as jnp
+
+    from cartseg_tpu.infer import engine
+    from cartseg_tpu.workloads import create_pseudo_labels
+
+    load = functools.partial(engine.load_torch_member, dtype=jnp.float32)
+    monkeypatch.setattr(engine, "load_torch_member", load)
+    monkeypatch.setattr(create_pseudo_labels, "load_torch_member", load)
+
+
 @pytest.fixture(scope="module", autouse=True)
 def one_torch_thread():
     """Run a test module's torch CPU ops on one thread. The suite runs
