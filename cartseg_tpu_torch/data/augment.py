@@ -272,30 +272,51 @@ def _motion_blur(img, do, d):
     return torch.where(do, blurred, img)
 
 
-def augment_batch(gen: torch.Generator, images_u8, masks,
-                  cfg: AugmentConfig):
-    """[B,H,W,3] uint8 + [B,H,W,1] float -> (normalized float32 images,
-    float32 masks), all on the device of the inputs and of `gen`."""
+def draw_augment(gen: torch.Generator, B: int, H: int, W: int,
+                 cfg: AugmentConfig, device):
+    """The draws of one batch of B rows, in order: U [17,B] uniforms (every
+    small per-sample draw, as JAX), u [9] (the warp's; None without a
+    warp) and noise [B,H,W,3] standard normals (None without the noise
+    op)."""
     if cfg.per_sample_warp:
         raise NotImplementedError(
             "per_sample_warp is not ported (ROADMAP.md Queue 1 item 11)")
-    B, H, W, _ = images_u8.shape
-    dev = images_u8.device
-    # every small per-sample draw from one [17,B] uniform matrix, the
-    # warp's from 9 more, as JAX
-    U = torch.rand((17, B), generator=gen, device=dev)
-    u = torch.rand((9,), generator=gen, device=dev) if cfg.any_warp \
+    U = torch.rand((17, B), generator=gen, device=device)
+    u = torch.rand((9,), generator=gen, device=device) if cfg.any_warp \
         else None
-    noise = torch.randn((B, H, W, 3), generator=gen, device=dev) \
+    noise = torch.randn((B, H, W, 3), generator=gen, device=device) \
         if cfg.noise_p > 0 else None
-    return apply_augment(images_u8, masks, cfg, U, u, noise)
+    return U, u, noise
+
+
+def augment_batch(gen: torch.Generator, images_u8, masks,
+                  cfg: AugmentConfig, rows: slice = None,
+                  batch: int = None):
+    """[b,H,W,3] uint8 + [b,H,W,1] float -> (normalized float32 images,
+    float32 masks), all on the device of the inputs and of `gen`.
+
+    Under data parallelism the inputs are `rows` of a global batch of
+    `batch` rows: the draws are made at the global size from the same
+    generator state on every rank, and each rank takes its rows, so its
+    augmentation of global row i is the single-process one. The batch's
+    shared draws (the warp, the blur's direction: the global row 0's)
+    are every rank's."""
+    B, H, W, _ = images_u8.shape
+    U, u, noise = draw_augment(gen, B if batch is None else batch, H, W,
+                               cfg, images_u8.device)
+    blur_u = U[16, 0]
+    if rows is not None:
+        U = U[:, rows]
+        noise = noise[rows] if noise is not None else None
+    return apply_augment(images_u8, masks, cfg, U, u, noise, blur_u)
 
 
 def apply_augment(images_u8, masks, cfg: AugmentConfig, U: torch.Tensor,
-                  u, noise):
+                  u, noise, blur_u=None):
     """The pipeline at given draws: U [17,B] and u [9] uniforms in [0,1),
     noise [B,H,W,3] standard normals (u / noise may be None when their
-    ops are off). augment_batch draws them; the tests give JAX's."""
+    ops are off), blur_u the uniform of the blur's direction (U[16, 0]
+    when None). augment_batch draws them; the tests give JAX's."""
     B, H, W, _ = images_u8.shape
     img = images_u8
     masks = masks.to(torch.float32)
@@ -347,7 +368,8 @@ def apply_augment(images_u8, masks, cfg: AugmentConfig, U: torch.Tensor,
                                           0, 255), img)
 
     if cfg.motion_blur_p > 0:
-        d = torch.clamp((U[16, 0] * 4.0).to(torch.int64), max=3)
+        blur_u = U[16, 0] if blur_u is None else blur_u
+        d = torch.clamp((blur_u * 4.0).to(torch.int64), max=3)
         img = _motion_blur(img, col(U[15] < cfg.motion_blur_p), d)
 
     return normalize_batch(img, cfg.mean, cfg.std), masks

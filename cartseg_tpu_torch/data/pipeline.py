@@ -7,8 +7,10 @@ on a card is decoded by nvJPEG, each thread with its own decode state
 and stream); each batch is stacked into pinned memory (on a CUDA
 device) and copied with `non_blocking=True` to the explicit device
 while the previous step computes. Augmentation and normalisation run on
-the device. Multi-host row slicing (the JAX loader's sharding path) is
-the data-parallel slice's (ROADMAP.md Queue 1 item 8).
+the device. Under data parallelism (`rows`, parallel/mesh.py
+`host_batch_slice`) each rank reads only its contiguous rows of every
+global batch; the order stays global (cartseg_tpu/data/pipeline.py:
+60-100).
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from __future__ import annotations
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, Sequence
+from typing import Callable, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -25,13 +27,17 @@ import torch
 class Loader:
     """Iterates (images_u8 [B,H,W,3], masks float32 [B,H,W,1]) on
     `device`. order: an index array (epoch plan) over the dataset; the
-    trailing partial batch is dropped when drop_last."""
+    trailing partial batch is dropped when drop_last. rows(n): the slice
+    of a global batch of n indices that this rank reads (all of them when
+    None)."""
 
     def __init__(self, dataset, batch_size: int, *, device,
                  drop_last: bool = True, num_threads: int = 4,
-                 prefetch: int = 2):
+                 prefetch: int = 2,
+                 rows: Optional[Callable[[int], slice]] = None):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.rows = rows
         self.device = torch.device(device)
         self.drop_last = drop_last
         self.num_threads = num_threads
@@ -42,7 +48,8 @@ class Loader:
         n = len(order)
         end = (n // bs) * bs if self.drop_last else n
         for i in range(0, end, bs):
-            yield list(order[i:i + bs])
+            idxs = list(order[i:i + bs])
+            yield idxs if self.rows is None else idxs[self.rows(len(idxs))]
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(arr)

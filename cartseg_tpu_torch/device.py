@@ -8,6 +8,8 @@ caller asks for it by name (the tests do).
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -34,10 +36,26 @@ def resolve_device(device) -> torch.device:
 
 
 def set_fp32_policy() -> None:
-    """Keep float32 math in full float32 on the card: cuDNN convolutions
-    would otherwise take TF32 by default, and the Canny front end (the
-    fp32 Sobel convolution and the gray matmul) compares gradient
-    magnitudes against thresholds, where TF32's 10-bit mantissa flips
-    pixels. The model itself runs in bf16, where TF32 does not apply."""
+    """Keep float32 math in full float32 on the card, for the rest of the
+    process: cuDNN convolutions would otherwise take TF32 by default, and
+    the Canny front end (the fp32 Sobel convolution and the gray matmul)
+    compares gradient magnitudes against thresholds, where TF32's 10-bit
+    mantissa flips pixels. The model itself runs in bf16, where TF32 does
+    not apply. The inference programs take `fp32_policy()` around each
+    call instead, which gives the flags back."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def fp32_policy():
+    """`set_fp32_policy` for the block's length: the TF32 flags are the
+    caller's again after it, whatever they were."""
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    set_fp32_policy()
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags

@@ -11,11 +11,18 @@ infer/mining.py builds its program from the same pieces.
 On the card the model computes in bf16 (as the JAX workload does,
 engine.py:38) and the logits are cast to fp32 before the sigmoid;
 float32 convolutions and matmuls outside the model are kept in full
-float32 (`device.set_fp32_policy`: cuDNN TF32 off).
+float32 for each call (`device.fp32_policy`: cuDNN TF32 off, the
+caller's flags restored after it).
+
+Each program carries `.device`, its members' device, and
+`.replicate(device)`, the same program over copies of the members on
+another device, which `parallel.mesh.shard_inference_program` builds
+its row shards from.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 from pathlib import Path
@@ -24,7 +31,7 @@ from typing import Callable, Sequence
 import torch
 import torch.nn as nn
 
-from cartseg_tpu_torch.device import resolve_device, set_fp32_policy
+from cartseg_tpu_torch.device import fp32_policy, resolve_device
 from cartseg_tpu_torch.models.factory import build_model
 from cartseg_tpu_torch.ops.connected_components import (
     remove_small_components)
@@ -79,6 +86,17 @@ def load_member(pth_path, encoder: str = "efficientnet-b0",
     model.load_state_dict(sd)
     return EnsembleMember(prepare_model(model, device, dtype), weight,
                           read_threshold_sidecar(pth_path))
+
+
+def replicate_members(members: Sequence[EnsembleMember],
+                      device) -> list:
+    """Copies of the members (weights, dtype, threshold) on `device`."""
+    return [dataclasses.replace(m, model=copy.deepcopy(m.model).to(device))
+            for m in members]
+
+
+def members_device(members: Sequence[EnsembleMember]) -> torch.device:
+    return next(members[0].model.parameters()).device
 
 
 def _ensemble_forward(members: Sequence[EnsembleMember], mean, std):
@@ -172,17 +190,21 @@ def pseudo_label_program(members: Sequence[EnsembleMember], mean, std,
     fg_area is taken on the CLEANED mask (the reference computes it
     after clean_mask, create_pseudo_labels.py:235); every other stat is
     on the raw thresholded probs, as engine.py:171-209."""
-    set_fp32_policy()
     forward_tta = _tta(_ensemble_forward(members, mean, std))
     qc = qc_stats_fn(edge_threshold=edge_threshold, edge_method=edge_method,
                      canny_low=canny_low, canny_high=canny_high)
 
     @torch.inference_mode()
     def program(images_u8: torch.Tensor, threshold: float):
-        probs, probs_flip = forward_tta(images_u8)
-        pred = remove_small_components(probs >= threshold, min_area)
-        stats = qc(probs, probs_flip, images_u8, threshold)
-        stats["fg_area"] = pred.to(torch.float32).mean((1, 2))
+        with fp32_policy():
+            probs, probs_flip = forward_tta(images_u8)
+            pred = remove_small_components(probs >= threshold, min_area)
+            stats = qc(probs, probs_flip, images_u8, threshold)
+            stats["fg_area"] = pred.to(torch.float32).mean((1, 2))
         return pred, probs, stats
 
+    program.device = members_device(members)
+    program.replicate = lambda device: pseudo_label_program(
+        replicate_members(members, device), mean, std, min_area,
+        edge_threshold, edge_method, canny_low, canny_high)
     return program

@@ -30,16 +30,18 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from cartseg_tpu_torch.device import set_fp32_policy
+from cartseg_tpu_torch.device import fp32_policy
 from cartseg_tpu_torch.infer.engine import (EnsembleMember, _ensemble_forward,
                                             _tta, ensemble_probs_fn,
-                                            entropy_map)
+                                            entropy_map, members_device,
+                                            replicate_members)
 from cartseg_tpu_torch.infer.pseudo_labels import (IMAGENET_MEAN,
                                                    IMAGENET_STD, IMG_EXTS,
                                                    load_frame)
 from cartseg_tpu_torch.ops.connected_components import count_components
 from cartseg_tpu_torch.ops.edges import mask_boundary
 from cartseg_tpu_torch.ops.morphology import fill_holes_from_border
+from cartseg_tpu_torch.parallel.mesh import shard_inference_program
 from cartseg_tpu_torch.utils import image_io
 
 
@@ -57,6 +59,10 @@ class MiningConfig:
     seed: int = 1337
     save_previews: bool = False
     preview_top_k: int = 50
+    # the batch's rows split over this process's cards
+    # (parallel/mesh.py shard_inference_program; JAX mining.py:52-55);
+    # one card runs the program as it is
+    use_mesh: bool = True
 
 
 def metrics_body(threshold: float, delta: float) -> Callable:
@@ -96,15 +102,20 @@ def mining_program(members: Sequence[EnsembleMember], mean, std,
     fn(images_u8 [B,H,W,3]) -> dict of per-image metrics [B] (the
     ensemble with flip TTA, then `metrics_body`). Like
     `pseudo_label_program`, it keeps float32 outside the model in full
-    float32 (`set_fp32_policy`)."""
-    set_fp32_policy()
+    float32 for each call (`fp32_policy`), and carries `.device` and
+    `.replicate(device)`."""
     forward_tta = _tta(_ensemble_forward(members, mean, std))
     body = metrics_body(threshold, delta_near)
 
     @torch.inference_mode()
     def program(images_u8: torch.Tensor) -> dict:
-        return body(*forward_tta(images_u8))
+        with fp32_policy():
+            return body(*forward_tta(images_u8))
 
+    program.device = members_device(members)
+    program.replicate = lambda device: mining_program(
+        replicate_members(members, device), mean, std, threshold,
+        delta_near)
     return program
 
 
@@ -139,6 +150,9 @@ def mine_hard_cases(members: Sequence[EnsembleMember], cfg: MiningConfig,
     std = IMAGENET_STD if cfg.imagenet_norm else (1, 1, 1)
     program = mining_program(members, mean, std, cfg.threshold,
                              cfg.delta_near)
+    if cfg.use_mesh:
+        program = shard_inference_program(program, cfg.batch_size,
+                                          name="mine_hard_cases", log=log)
     rows = []
     batch, metas = [], []
 

@@ -11,9 +11,9 @@ create_pseudo_labels.py —
   * accepted/uncertain routing, hard-mask PNG + fp16 soft-prob npz +
     overlay PNG + QC CSV (:243-260)
   * per-bucket cap (default 50) and global cap (:264-287)
-
-Not carried over from the JAX version: `use_mesh` (batch sharding over
-a device mesh; data parallelism is a later slice).
+  * `use_mesh`: each batch's rows split over this process's cards
+    (parallel/mesh.py `shard_inference_program`); one card runs the
+    program as it is
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ import torch
 from cartseg_tpu_torch import geometry as G
 from cartseg_tpu_torch.infer.engine import (EnsembleMember,
                                             pseudo_label_program)
+from cartseg_tpu_torch.parallel.mesh import shard_inference_program
 from cartseg_tpu_torch.utils import image_io
 
 IMG_EXTS = {".jpg", ".jpeg", ".png", ".bmp", ".tif", ".tiff"}
@@ -89,6 +90,10 @@ class PseudoLabelConfig:
     canny_low: float = 50.0
     canny_high: float = 150.0
     edge_threshold: float = 120.0
+    # batch-parallel inference over this process's cards when more than
+    # one is visible and batch_size divides them (JAX
+    # pseudo_labels.py:91-95); each row's result is the unsharded one
+    use_mesh: bool = True
 
 
 def _overlay(rgb_u8: np.ndarray, pred01: np.ndarray) -> np.ndarray:
@@ -146,6 +151,10 @@ def generate_pseudo_labels(members: Sequence[EnsembleMember],
         members, mean, std, min_area, edge_threshold=cfg.edge_threshold,
         edge_method=cfg.edge_method, canny_low=cfg.canny_low,
         canny_high=cfg.canny_high)
+    if cfg.use_mesh:
+        program = shard_inference_program(program, cfg.batch_size,
+                                          name="generate_pseudo_labels",
+                                          log=log)
 
     paths = sorted(p for p in root.rglob("*")
                    if p.suffix.lower() in IMG_EXTS)

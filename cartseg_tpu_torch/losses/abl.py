@@ -16,6 +16,19 @@ the reference offset table (index 8 is the centre), `kl_div` applied to
 probabilities as if they were logits, max(0, EDT - 1) distances with a
 zero map for a sample without boundary, and (loss, n_valid) returned so
 the caller skips the term where n_valid == 0 with no host sync.
+
+Under data parallelism (`bce_dice_abl_over(group, ...)`, the ranks
+whose rows make the batch; the public names keep the JAX signatures)
+the two batch-wide reductions are the global batch's, exactly:
+  * eps: n(v) = ceil(log(max(v, 1e-5) / 1e-5) / log 1.2) is monotone in
+    v, so the grid index of the global (k+1)-th largest KL value is the
+    global (k+1)-th largest n, read from an all-reduced histogram of n
+    over N_BINS bins (every finite float32 v has n < N_BINS); the
+    count(kl > eps) > max_N correction takes one all-reduced count;
+  * the loss: sum(contrib) and n_valid are all-reduced, and each rank's
+    loss is world-size times its share sum(contrib_rank) / n_valid,
+    because DDP averages the ranks' gradients. The mean of the ranks'
+    losses is the global loss.
 """
 
 from __future__ import annotations
@@ -28,11 +41,14 @@ import torch.nn.functional as F
 from cartseg_tpu_torch.losses.label_smooth import lsr_ce
 from cartseg_tpu_torch.losses.region import bce_dice_loss
 from cartseg_tpu_torch.ops.edt import edt_batch
+from cartseg_tpu_torch.parallel import mesh
 
 # reference offset table (abl.py:121-127); dx indexes H, dy indexes W
 _X_RANGE = (1, -1, 0, 0, -1, 1, -1, 1, 0)
 _Y_RANGE = (0, 0, -1, 1, 1, 1, -1, -1, 0)
 _MAX_DIS = 1e5
+# grid indices 0..N_BINS-1: n(float32 max) = 550
+N_BINS = 560
 
 
 def _kl_div(a, b):
@@ -55,12 +71,41 @@ def _scalar(v: float, like: torch.Tensor) -> torch.Tensor:
     return torch.full((), v, dtype=torch.float32, device=like.device)
 
 
+def _grid_index(v: torch.Tensor, base, grid) -> torch.Tensor:
+    """n(v): the index of the smallest grid point 1e-5 * 1.2^n >= v."""
+    return torch.ceil(torch.log(torch.maximum(v, base) / base)
+                      / torch.log(grid))
+
+
+def _global_grid_index(flat: torch.Tensor, k: int, base, grid,
+                       group) -> torch.Tensor:
+    """n of the (k+1)-th largest value of the ranks' `flat` together
+    (n(global min - 1) where they hold k+1 values or fewer), from an
+    all-reduced histogram of n."""
+    total = mesh.all_reduce_sum(
+        torch.full((1,), flat.numel(), dtype=torch.float64,
+                   device=flat.device), group)
+    if k + 1 > int(total.item()):
+        lo = mesh.all_reduce_min(flat.min().reshape(1), group)[0]
+        return torch.clamp(_grid_index(lo - 1.0, base, grid), min=0.0)
+    n = torch.nan_to_num(torch.clamp(_grid_index(flat, base, grid), 0,
+                                     N_BINS - 1), nan=0.0)
+    hist = mesh.all_reduce_sum(torch.bincount(
+        n.to(torch.int64), minlength=N_BINS).to(torch.float64), group)
+    # at_least[t] = count(n >= t): the answer is the largest t with
+    # count(n >= t) >= k + 1
+    at_least = hist.flip(0).cumsum(0).flip(0)
+    return ((at_least >= k + 1).sum() - 1).to(torch.float32)
+
+
 def logits2boundary(probs2: torch.Tensor,
-                    max_N_ratio: float = 1.0 / 100) -> torch.Tensor:
+                    max_N_ratio: float = 1.0 / 100,
+                    group=None) -> torch.Tensor:
     """[B,H,W,2] class scores -> [B,H,W] bool predicted boundary
     (abl.py:65-87): neighbour-KL edges, the adaptive eps (the smallest
     1e-5 * 1.2^k with count(kl > eps) <= max_N, from the (max_N+1)-th
-    largest kl of the whole batch), then a 3x3 dilation."""
+    largest kl of the whole batch: of the group's ranks together under
+    data parallelism), then a 3x3 dilation."""
     B, H, W, _ = probs2.shape
     max_N = (H * W) * max_N_ratio  # per the reference: image-area budget
     with torch.no_grad():
@@ -69,18 +114,21 @@ def logits2boundary(probs2: torch.Tensor,
         kl = F.pad(kl_ud, (0, 0, 0, 1)) + F.pad(kl_lr, (0, 1))
         flat = kl.reshape(-1)
         k = int(max_N)
-        if k + 1 <= flat.shape[0]:
-            kth = torch.topk(flat, k + 1).values[-1]
-        else:
-            kth = flat.min() - 1.0
         base = _scalar(1e-5, flat)
         grid = _scalar(1.2, flat)
-        n = torch.ceil(torch.log(torch.maximum(kth, base) / base)
-                       / torch.log(grid))
+        if group is not None:
+            n = _global_grid_index(flat, k, base, grid, group)
+        else:
+            if k + 1 <= flat.shape[0]:
+                kth = torch.topk(flat, k + 1).values[-1]
+            else:
+                kth = flat.min() - 1.0
+            n = _grid_index(kth, base, grid)
         eps = base * torch.pow(grid, torch.clamp(n, min=0.0))
         # kth may sit exactly on a grid point, where `>` already keeps
         # the count within budget
-        eps = torch.where((flat > eps).sum() > max_N, eps * grid, eps)
+        over = mesh.all_reduce_sum((flat > eps).sum().reshape(1), group)[0]
+        eps = torch.where(over > max_N, eps * grid, eps)
         edge = (kl > eps).to(torch.float32)
         dil = F.max_pool2d(edge[:, None], 3, stride=1, padding=1)[:, 0]
     return dil > 0
@@ -111,6 +159,21 @@ def active_boundary_loss(
     """ABL forward. logits [B,H,W,1] (binary) or [B,H,W,C]; target
     [B,H,W] or [B,H,W,1] integer-valued. Returns (loss, n_valid) as
     device tensors; use the loss only where n_valid > 0."""
+    return _active_boundary_loss(logits, target, None, max_N_ratio,
+                                 ignore_label, label_smoothing,
+                                 max_clip_dist, isdetach)
+
+
+def _active_boundary_loss(logits, target, group,
+                          max_N_ratio: float = 1.0 / 100,
+                          ignore_label: int = 255,
+                          label_smoothing: float = 0.2,
+                          max_clip_dist: float = 20.0,
+                          isdetach: bool = True):
+    """`active_boundary_loss` over `group`'s ranks (None: alone): logits
+    and target are this rank's rows of the batch, n_valid the global one
+    and the loss world-size times this rank's share of the global
+    loss."""
     logits = logits.to(torch.float32)
     if target.dim() == 4:
         target = target[..., 0]
@@ -125,7 +188,7 @@ def active_boundary_loss(
     with torch.no_grad():
         gt_bound = gt2boundary(target, ignore_label)
         dist_map = gt_dist_maps(gt_bound)
-    pred_bound = logits2boundary(probs, max_N_ratio)
+    pred_bound = logits2boundary(probs, max_N_ratio, group)
     n_pred = pred_bound.sum()
 
     _, H, W = dist_map.shape
@@ -150,7 +213,13 @@ def active_boundary_loss(
     ce = lsr_ce(kl_stack, safe_gt, label_smoothing, ignore_label)
     contrib = ce * weight_ce * valid.to(torch.float32)
     n_valid = valid.sum()
-    loss = contrib.sum() / torch.clamp(n_valid, min=1)
+    if group is not None:
+        counts = mesh.all_reduce_sum(torch.stack([n_valid, n_pred]), group)
+        n_valid, n_pred = counts[0], counts[1]
+        scale = float(mesh.world_size(group))
+        loss = contrib.sum() * scale / torch.clamp(n_valid, min=1)
+    else:
+        loss = contrib.sum() / torch.clamp(n_valid, min=1)
     # an empty predicted boundary -> the caller skips (n_valid carries it)
     n_valid = torch.where(n_pred < 1, 0, n_valid)
     return loss, n_valid
@@ -161,9 +230,19 @@ def bce_dice_abl(logits, targets, bce_weight: float = 0.5,
     """BCEDiceABL composite (src/training/train_BCEDice_ABL.py:264-302):
     region = BCE+Dice, boundary = ABL (skipped when degenerate). Returns
     (total, {region, boundary, boundary_used}), all device tensors."""
+    return bce_dice_abl_over(None, logits, targets, bce_weight, abl_weight,
+                             **abl_kwargs)
+
+
+def bce_dice_abl_over(group, logits, targets, bce_weight: float = 0.5,
+                      abl_weight: float = 0.1, **abl_kwargs):
+    """`bce_dice_abl` on this rank's rows of a batch that `group`'s ranks
+    hold together (None: alone): the mean of the ranks' totals and of
+    their components is the global batch's."""
     region = bce_dice_loss(logits, targets, bce_weight=bce_weight)
     targ_int = (targets[..., 0] > 0.5).to(torch.int32)
-    abl, n_valid = active_boundary_loss(logits, targ_int, **abl_kwargs)
+    abl, n_valid = _active_boundary_loss(logits, targ_int, group,
+                                         **abl_kwargs)
     use = (n_valid > 0).to(torch.float32)
     total = region + abl_weight * abl * use
     return total, {"region": region, "boundary": abl * use,

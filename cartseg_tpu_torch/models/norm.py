@@ -24,6 +24,25 @@ entry point turns CARTSEG_PALLAS_BN into it (workloads/_runner.py).
 Both lanes hold the same parameters and buffers, so a checkpoint loads
 in either.
 
+Under data parallelism (`sync_batch_norm(model, group)`, set by the
+trainer over a process group) train mode in both lanes takes the
+statistics of the GLOBAL batch, as the JAX mesh does (GSPMD all-reduces
+flax's batch means): `BNTrain` all-reduces (sum x, sum x^2) and the
+element count after its sums in the forward, and (sum dy, sum dy*x) in
+the backward, so the mean, the variance, dx and the running statistics
+are the global ones on every rank; the sums run through the channel-sums
+kernel. The torch lane takes `SyncBNTrain`, the same synced path over
+plain per-channel sums, centred on the global mean as torch's own batch
+norm centres its variance (a second all_reduce in the forward; sum x^2 -
+n mean^2 in fp32 loses the variance of a channel whose mean is large
+against its spread), with flax's biased running variance. Not
+`nn.SyncBatchNorm`: it refuses CPU tensors, and its running variance is
+torch's unbiased one. Each rank's dgamma and dbeta are its own rows'
+share, from the local sums, as SyncBatchNorm's are: DDP averages the
+ranks' gradients, so the shares' sum would count the global batch
+world-size times. Every rank issues the same collectives in the same
+order, only `all_reduce`, on the inputs' device.
+
 Activation recompute (the trainer's `remat`, torch.utils.checkpoint)
 runs a train-mode forward a second time inside the backward. flax
 returns `batch_stats` once from the forward, so while a model is
@@ -41,6 +60,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+import torch.distributed as dist
+
 from cartseg_tpu_torch.ops.channel_sums import channel_sums
 from cartseg_tpu_torch.ops.cuda.channel_sums import memory_order
 
@@ -51,11 +72,19 @@ class BatchNorm2d(nn.BatchNorm2d):
     """nn.BatchNorm2d whose train-mode running variance follows flax."""
 
     recompute = False   # set by `recomputing`
+    process_group = None  # set by `sync_batch_norm`
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.training and self.track_running_stats
                 and self.momentum is not None):
             return super().forward(x)
+        if self.process_group is not None:
+            # the synced path, with flax's biased running variance
+            y, mean, var = SyncBNTrain.apply(x, self.weight, self.bias,
+                                             self.eps, self.process_group)
+            if not self.recompute:
+                _update_running(self, mean, var)
+            return y
         n = x.numel() // x.shape[1]
         m = self.momentum
         # the op updates (and autograd may keep) its own copy r; the
@@ -86,21 +115,40 @@ def _dense(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return t.contiguous(memory_format=fmt)
 
 
+def _all_reduce_sums(group, *vs: torch.Tensor) -> list:
+    """The [C] vectors summed over the group's ranks, each in its own
+    type, through one float64 all_reduce (an element count of 2^24 and
+    more stays exact)."""
+    buf = torch.cat([v.to(torch.float64).reshape(-1) for v in vs])
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    return [p.to(v.dtype)
+            for p, v in zip(buf.split([v.numel() for v in vs]), vs)]
+
+
+def _count(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return torch.full((1,), float(x.numel() // x.shape[1]),
+                      dtype=like.dtype, device=like.device)
+
+
 class BNTrain(torch.autograd.Function):
     """Train-mode batch norm over (N, H, W) (`bn_train`, norm.py:38-89):
     returns (y, mean, var) with mean and var fp32 [C] (biased variance).
     mean and var feed the running statistics only and take no gradient,
     as in JAX. The elementwise math runs in x's type with autocast off:
-    autocast would lift rsqrt to fp32 where flax computes in bf16."""
+    autocast would lift rsqrt to fp32 where flax computes in bf16.
+    `group`: the process group whose ranks' rows make the batch (None: x
+    alone)."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps):
+    def forward(ctx, x, weight, bias, eps, group=None):
         if x.dim() != 4:
             raise ValueError(f"BNTrain: need [N,C,H,W], got {tuple(x.shape)}")
         with torch.autocast(x.device.type, enabled=False):
             x = _dense(x, x)
             n = x.numel() // x.shape[1]
             s, ss = channel_sums(x, x)
+            if group is not None:
+                s, ss, n = _all_reduce_sums(group, s, ss, _count(x, s))
             mean = s / n
             var = ss / n - mean * mean
             dt = x.dtype
@@ -109,6 +157,7 @@ class BNTrain(torch.autograd.Function):
                  + _per_channel(bias.to(dt)))
             rstd = torch.rsqrt(var + eps)
         ctx.save_for_backward(x, weight, mean, rstd)
+        ctx.group, ctx.n = group, n
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
@@ -116,20 +165,71 @@ class BNTrain(torch.autograd.Function):
     def backward(ctx, dy, _dmean, _dvar):
         x, weight, mean, rstd = ctx.saved_tensors
         with torch.autocast(x.device.type, enabled=False):
-            n = x.numel() // x.shape[1]
+            n = ctx.n
             dy = _dense(dy.to(x.dtype), x)
             s_dy, s_dyx = channel_sums(dy, x)
             dbeta = s_dy
             dgamma = rstd * (s_dyx - mean * s_dy)
+            if ctx.group is not None:
+                # dx from the global sums; dgamma and dbeta stay this
+                # rank's share (DDP averages them)
+                s_dy, s_dyx = _all_reduce_sums(ctx.group, s_dy, s_dyx)
+                g_dgamma = rstd * (s_dyx - mean * s_dy)
+            else:
+                g_dgamma = dgamma
             # dx = (gamma*rstd) * (dy - dbeta/n - xhat * dgamma/n), folded
             # into a*dy - d*x + b over per-channel fp32 coefficients
             a = weight * rstd
-            d = a * rstd * (dgamma / n)
-            b = -a * (dbeta / n) + d * mean
+            d = a * rstd * (g_dgamma / n)
+            b = -a * (s_dy / n) + d * mean
             dt = x.dtype
             dx = (_per_channel(a.to(dt)) * dy - _per_channel(d.to(dt)) * x
                   + _per_channel(b.to(dt)))
-        return dx, dgamma, dbeta, None
+        return dx, dgamma, dbeta, None, None
+
+
+class SyncBNTrain(torch.autograd.Function):
+    """The torch lane's train-mode batch norm over the rows of `group`'s
+    ranks together: (y, mean, var) as `BNTrain`'s, from plain
+    per-channel sums in fp32 (float64 for float64 inputs), the variance
+    and the backward's sum centred on the global mean. y in x's type."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        with torch.autocast(x.device.type, enabled=False):
+            acc = torch.promote_types(x.dtype, torch.float32)
+            xa = x.to(acc)
+            s, n = _all_reduce_sums(group, xa.sum((0, 2, 3)), _count(x, xa))
+            mean = s / n
+            xc = xa - _per_channel(mean)
+            (ss,) = _all_reduce_sums(group, (xc * xc).sum((0, 2, 3)))
+            var = ss / n
+            rstd = torch.rsqrt(var + eps)
+            y = (xc * _per_channel(weight.to(acc) * rstd)
+                 + _per_channel(bias.to(acc))).to(x.dtype)
+        ctx.save_for_backward(x, weight, mean, rstd)
+        ctx.group, ctx.n = group, n
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, rstd = ctx.saved_tensors
+        with torch.autocast(x.device.type, enabled=False):
+            acc = mean.dtype
+            xhat = (x.to(acc) - _per_channel(mean)) * _per_channel(rstd)
+            dy = dy.to(acc)
+            s_dy = dy.sum((0, 2, 3))
+            s_dyxhat = (dy * xhat).sum((0, 2, 3))
+            # this rank's share; DDP averages the ranks' gradients
+            dgamma, dbeta = s_dyxhat, s_dy
+            s_dy, s_dyxhat = _all_reduce_sums(ctx.group, s_dy, s_dyxhat)
+            n = ctx.n
+            dx = (_per_channel(weight.to(acc) * rstd)
+                  * (dy - _per_channel(s_dy / n)
+                     - xhat * _per_channel(s_dyxhat / n))).to(x.dtype)
+        return dx, dgamma.to(weight.dtype), dbeta.to(weight.dtype), None, \
+            None
 
 
 class ChannelSumsBatchNorm2d(nn.BatchNorm2d):
@@ -140,6 +240,7 @@ class ChannelSumsBatchNorm2d(nn.BatchNorm2d):
     input's type. Parameter and buffer names are nn.BatchNorm2d's."""
 
     recompute = False   # set by `recomputing`
+    process_group = None  # set by `sync_batch_norm`
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -149,15 +250,32 @@ class ChannelSumsBatchNorm2d(nn.BatchNorm2d):
                     self.running_var.to(dt) + self.eps)
                 return ((x - _per_channel(self.running_mean.to(dt)))
                         * _per_channel(mul) + _per_channel(self.bias.to(dt)))
-        y, mean, var = BNTrain.apply(x, self.weight, self.bias, self.eps)
-        if self.recompute:
-            return y
-        with torch.no_grad():
-            m = self.momentum
-            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
-            self.num_batches_tracked.add_(1)
+        y, mean, var = BNTrain.apply(x, self.weight, self.bias, self.eps,
+                                     self.process_group)
+        if not self.recompute:
+            _update_running(self, mean, var)
         return y
+
+
+def _update_running(bn: nn.BatchNorm2d, mean: torch.Tensor,
+                    var: torch.Tensor) -> None:
+    """flax's running-statistics update with the biased batch variance
+    (torch's momentum 0.1 is flax's 0.9)."""
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+        bn.running_var.mul_(1.0 - m).add_(var, alpha=m)
+        bn.num_batches_tracked.add_(1)
+
+
+def sync_batch_norm(model: nn.Module, group) -> nn.Module:
+    """Train model's BatchNorm layers (both lanes) on the statistics of
+    the batch that `group`'s ranks hold together (None: each its own
+    rows again). Returns model."""
+    for m in model.modules():
+        if isinstance(m, (BatchNorm2d, ChannelSumsBatchNorm2d)):
+            m.process_group = group
+    return model
 
 
 @contextlib.contextmanager

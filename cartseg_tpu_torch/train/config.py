@@ -109,7 +109,11 @@ class TrainConfig:
     save_torch_checkpoint: bool = False
 
     # --- parallelism
-    use_mesh: bool = True   # one card: accepted, no mesh
+    # train over the initialised process group (DDP, BN statistics summed
+    # over the ranks, each rank its rows of every global batch); nothing
+    # changes in a single process. False under a group of several ranks
+    # raises, as does a global batch that does not divide over them
+    use_mesh: bool = True
 
     # --- observability
     trace_dir: str = ""

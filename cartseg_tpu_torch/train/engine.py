@@ -20,7 +20,22 @@ recomputes the forward in the backward (torch.utils.checkpoint; the BN
 layers update their running statistics once, models/norm.py).
 `trace_dir` writes a torch.profiler trace of epoch 0's train loop.
 An Orbax `init_checkpoint` raises (train/config.py `check_supported`).
-`use_mesh` is accepted and means nothing on one card.
+
+Data parallelism (`use_mesh` under an initialised process group,
+parallel/mesh.py): the model trains inside
+`DistributedDataParallel(broadcast_buffers=False)`, its BatchNorm layers
+take the global batch's statistics (models/norm.py `sync_batch_norm`;
+the buffers stay equal on every rank without a broadcast), each rank
+loads and augments its contiguous rows of every global batch from
+global draws, and the step's loss, the validation and sweep sums are
+all-reduced, so every rank takes the same early-stopping and
+best-checkpoint branch. With remat the non-reentrant checkpoint sits
+inside the DDP module (`_Replica`): DDP's hooks run once a step and the
+recompute reruns the bare model. Files (the synthetic tree, the CSV,
+history.json, the .pth, its sidecar, the .last.pth) are written by rank
+0 only, with a barrier where another rank reads them next; resume reads
+the .last.pth on every rank. Checkpoints hold the bare model's state
+dict under the reference names.
 """
 
 from __future__ import annotations
@@ -35,6 +50,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 import torch.utils.checkpoint
+from torch.nn.parallel import DistributedDataParallel
 
 from cartseg_tpu_torch import metrics as M
 from cartseg_tpu_torch.data.augment import (AugmentConfig, augment_batch,
@@ -51,15 +67,16 @@ from cartseg_tpu_torch.data.sampling import (MixedSource, WeightedSampler,
                                              mixed_index_table,
                                              mixed_sample_weights)
 from cartseg_tpu_torch.device import resolve_device
-from cartseg_tpu_torch.losses.abl import bce_dice_abl
+from cartseg_tpu_torch.losses.abl import bce_dice_abl_over
 from cartseg_tpu_torch.losses.boundary import composite_seg_loss
 from cartseg_tpu_torch.losses.region import (bce_dice_loss,
                                              bce_dice_per_sample,
                                              focal_dice_loss)
 from cartseg_tpu_torch.models.factory import build_model, param_groups
-from cartseg_tpu_torch.models.norm import remat_contexts
+from cartseg_tpu_torch.models.norm import remat_contexts, sync_batch_norm
 from cartseg_tpu_torch.models.pretrained import (load_encoder_state_dict,
                                                  load_pretrained_encoder)
+from cartseg_tpu_torch.parallel import mesh
 from cartseg_tpu_torch.train import checkpoint as ckpt_lib
 from cartseg_tpu_torch.train.config import (SourceSpec, TrainConfig,
                                             check_supported)
@@ -84,19 +101,24 @@ SCHEMAS = {
 @dataclasses.dataclass
 class TrainState:
     """The model (parameters and BN buffers), the optimizer state, the
-    augmentation generator and the step count."""
+    augmentation generator and the step count; under data parallelism
+    `ddp`, the DDP module that runs the model's train forward."""
     model: torch.nn.Module
     opt: AdamWState
     gen: torch.Generator
     step: int = 0
+    ddp: Optional[torch.nn.Module] = None
 
     @property
     def params(self) -> Dict[str, torch.nn.Parameter]:
         return dict(self.model.named_parameters())
 
 
-def resolve_loss(spec) -> Callable:
-    """LossSpec -> fn(logits, masks, sample_w) -> (loss, components)."""
+def resolve_loss(spec, group=None) -> Callable:
+    """LossSpec -> fn(logits, masks, sample_w) -> (loss, components).
+    group: the data-parallel group (ABL's batch-wide reductions take the
+    global batch over it; the other losses are means of per-sample
+    terms over equal per-rank batches and need none)."""
     name, kw = spec.name, dict(spec.kwargs)
 
     if name == "bce_dice":
@@ -113,7 +135,7 @@ def resolve_loss(spec) -> Callable:
             return composite_seg_loss(logits, masks, **kw), {}
     elif name == "bce_dice_abl":
         def f(logits, masks, w):
-            return bce_dice_abl(logits, masks, **kw)
+            return bce_dice_abl_over(group, logits, masks, **kw)
     else:
         raise ValueError(f"unknown loss {name!r}")
     return f
@@ -134,22 +156,47 @@ def synthetic_frame_hw(img_size) -> tuple:
     return h, int(h * 400 / 512)
 
 
+class _Replica(torch.nn.Module):
+    """The train forward that DDP wraps: the model, or with remat its
+    non-reentrant checkpoint, so the recompute in the backward reruns the
+    model alone and DDP's hooks run once a step."""
+
+    def __init__(self, model: torch.nn.Module, remat: bool):
+        super().__init__()
+        self.model, self.remat = model, remat
+
+    def forward(self, x):
+        if self.remat and torch.is_grad_enabled():
+            return torch.utils.checkpoint.checkpoint(
+                self.model, x, use_reentrant=False,
+                context_fn=functools.partial(remat_contexts, self.model))
+        return self.model(x)
+
+
 class Trainer:
     """Engine of the port's training workloads (cartseg_tpu_torch.workloads)."""
 
     def __init__(self, cfg: TrainConfig, bn_lane: str = "torch"):
         """bn_lane: every BatchNorm's lane (models/norm.py), fixed for the
-        Trainer's life; the workloads' entry point picks it."""
+        Trainer's life; the workloads' entry point picks it. Under an
+        initialised process group with cfg.use_mesh the Trainer trains
+        over its ranks (parallel/mesh.py `training_group`, which raises
+        for use_mesh off under several ranks and for a global batch that
+        does not divide over them), each on its own device."""
         check_supported(cfg)
         self.cfg = cfg
         self.bn_lane = bn_lane
-        self.device = resolve_device(cfg.device)
+        self.group = mesh.training_group(cfg.use_mesh, cfg.batch_size)
+        self.world = mesh.world_size(self.group)
+        self.device = resolve_device(
+            mesh.local_device(cfg.device) if self.group is not None
+            else cfg.device)
         self.dtype = _DTYPES[cfg.compute_dtype]
         self.aug_cfg = {"train_512": AugmentConfig.train_512,
                         "train_224": AugmentConfig.train_224}.get(
             cfg.augment, AugmentConfig.none)(cfg.imagenet_norm)
         self.val_aug_cfg = AugmentConfig.none(cfg.imagenet_norm)
-        self.loss_fn = resolve_loss(cfg.loss)
+        self.loss_fn = resolve_loss(cfg.loss, self.group)
         # raises early if the encoder, decoder or lane is unknown
         build_model(cfg.encoder, cfg.classes, bn_lane, cfg.decoder)
 
@@ -182,9 +229,17 @@ class Trainer:
             model = model.to(memory_format=torch.channels_last)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(cfg.seed)
+        ddp = None
+        if self.group is not None:
+            sync_batch_norm(model, self.group)
+            ddp = DistributedDataParallel(
+                _Replica(model, cfg.remat), process_group=self.group,
+                broadcast_buffers=False,
+                device_ids=([self.device.index]
+                            if self.device.type == "cuda" else None))
         return TrainState(model=model,
                           opt=init_adamw(dict(model.named_parameters())),
-                          gen=gen)
+                          gen=gen, ddp=ddp)
 
     def group_ids(self, state: TrainState) -> Dict[str, int]:
         return group_ids(param_groups(state.model))
@@ -197,10 +252,16 @@ class Trainer:
         cfg = self.cfg
         if cfg.synthetic:
             from cartseg_tpu_torch.utils.synthetic import make_png_pair_tree
-            ir, mr = make_png_pair_tree(
-                cfg.out_path() / "synthetic", cfg.synthetic_sessions,
-                cfg.synthetic_per_session, synthetic_frame_hw(cfg.img_size),
-                seed=cfg.seed)
+            sroot = cfg.out_path() / "synthetic"
+            if mesh.is_main_process():
+                ir, mr = make_png_pair_tree(
+                    sroot, cfg.synthetic_sessions,
+                    cfg.synthetic_per_session,
+                    synthetic_frame_hw(cfg.img_size), seed=cfg.seed)
+            else:
+                # the tree's paths are fixed; rank 0 writes it
+                ir, mr = sroot / "images", sroot / "masks"
+            mesh.barrier("synthetic_tree")
             cfg = dataclasses.replace(cfg, images_root=str(ir),
                                       masks_root=str(mr))
             self.cfg = cfg
@@ -266,15 +327,18 @@ class Trainer:
 
     # ------------------------------------------------------------ steps
 
-    def _forward(self, model, x_nhwc):
+    def _forward(self, model, x_nhwc, ddp=None):
         """NHWC float input -> NHWC float32 logits [B,H,W,C]. With remat,
         a train-mode forward that records a graph keeps no activations
         and runs again in the backward (the JAX jax.checkpoint of the
-        forward, engine.py:296-297)."""
+        forward, engine.py:296-297). `ddp`: the DDP module that runs the
+        train forward under data parallelism."""
         x = x_nhwc.permute(0, 3, 1, 2)
         with torch.autocast(self.device.type, dtype=self.dtype,
                             enabled=self.dtype != torch.float32):
-            if self.cfg.remat and model.training and \
+            if ddp is not None and model.training:
+                out = ddp(x)
+            elif self.cfg.remat and model.training and \
                     torch.is_grad_enabled():
                 out = torch.utils.checkpoint.checkpoint(
                     model, x, use_reentrant=False,
@@ -286,15 +350,29 @@ class Trainer:
     def train_step(self, state: TrainState, images_u8, masks, sample_w,
                    lrs, active, gids):
         """One step in place on `state`; returns (loss, ok, components)
-        as device tensors."""
+        as device tensors. Under data parallelism the inputs are this
+        rank's rows of the global batch, the gradient is DDP's average
+        over the ranks and the loss and components returned are the
+        global batch's."""
         cfg = self.cfg
         model = state.model.train()
-        imgs, m = augment_batch(state.gen, images_u8, masks, self.aug_cfg)
-        logits = self._forward(model, imgs)
+        n = images_u8.shape[0] * self.world
+        rows = mesh.host_batch_slice(n) if state.ddp is not None else None
+        imgs, m = augment_batch(state.gen, images_u8, masks, self.aug_cfg,
+                                rows, n)
+        logits = self._forward(model, imgs, state.ddp)
         loss, comps = self.loss_fn(logits, m, sample_w)
         params = state.params
-        grads = dict(zip(params, torch.autograd.grad(
-            loss, list(params.values()))))
+        if state.ddp is not None:
+            # DDP averages the ranks' gradients in the backward
+            for p in params.values():
+                p.grad = None
+            loss.backward()
+            grads = {k: p.grad for k, p in params.items()}
+            loss, comps = self._global_step_values(loss, comps)
+        else:
+            grads = dict(zip(params, torch.autograd.grad(
+                loss, list(params.values()))))
         if cfg.clip_grad_norm > 0:
             gnorm = torch.linalg.vector_norm(torch.stack(
                 torch._foreach_norm(list(grads.values()))))
@@ -316,16 +394,35 @@ class Trainer:
         return (loss.detach(), ok,
                 {k: v.detach() for k, v in comps.items()})
 
+    def _global_step_values(self, loss, comps):
+        """The step's loss and components over the global batch: the mean
+        over the ranks (equal rows a rank), in one all_reduce."""
+        keys = list(comps)
+        vals = mesh.all_reduce_mean(torch.stack(
+            [loss.detach().to(torch.float32)]
+            + [comps[k].detach().to(torch.float32) for k in keys]),
+            self.group)
+        return vals[0], dict(zip(keys, vals[1:]))
+
     @torch.no_grad()
     def eval_step(self, state: TrainState, images_u8, masks, w):
         """Val loss and weighted metric sums; w: per-sample weights [B]
-        (0 for cycle-padded tail duplicates)."""
+        (0 for cycle-padded tail duplicates). Under data parallelism the
+        inputs are this rank's rows and the values returned the global
+        batch's: the loss the mean over the ranks, n and the sums their
+        sums."""
         model = state.model.eval()
         imgs = normalize_batch(images_u8.to(torch.float32),
                                self.val_aug_cfg.mean, self.val_aug_cfg.std)
         logits = self._forward(model, imgs)
         loss, _ = self.loss_fn(logits, masks, w)
         sums, n = M.eval_suite_sums(logits, masks, w)
+        if self.group is not None:
+            keys = list(sums)
+            v = torch.stack([loss / self.world, n.to(torch.float32)]
+                            + [sums[k].to(torch.float32) for k in keys])
+            mesh.all_reduce_sum(v, self.group)
+            loss, n, sums = v[0], v[1], dict(zip(keys, v[2:]))
         return loss, n, sums
 
     @torch.no_grad()
@@ -335,7 +432,12 @@ class Trainer:
         imgs = normalize_batch(images_u8.to(torch.float32),
                                self.val_aug_cfg.mean, self.val_aug_cfg.std)
         logits = self._forward(model, imgs)
-        return M.threshold_sweep_sums(logits, masks, thresholds, w)
+        d, i, n = M.threshold_sweep_sums(logits, masks, thresholds, w)
+        if self.group is not None:
+            v = mesh.all_reduce_sum(torch.cat(
+                [d, i, n.reshape(1).to(d.dtype)]), self.group)
+            d, i, n = v[:len(d)], v[len(d):2 * len(d)], v[-1]
+        return d, i, n
 
     # ------------------------------------------------------ checkpoints
 
@@ -371,10 +473,15 @@ class Trainer:
         phase = FreezePhase(cfg.freeze_encoder_epochs,
                             cfg.unfreeze_encoder_lr_scale)
         dev = self.device
+        main = mesh.is_main_process()
+        # under data parallelism each rank reads its rows of every batch
+        rows = mesh.host_batch_slice if self.group is not None else None
+        r0 = (rows(cfg.batch_size).start if rows is not None else 0)
         loader = Loader(train_ds, cfg.batch_size, device=dev,
-                        num_threads=cfg.num_threads)
+                        num_threads=cfg.num_threads, rows=rows)
         val_loader = Loader(val_ds, cfg.batch_size, device=dev,
-                            drop_last=True, num_threads=cfg.num_threads)
+                            drop_last=True, num_threads=cfg.num_threads,
+                            rows=rows)
 
         def val_order():
             """Every val sample once, the tail batch cycle-padded to a
@@ -386,13 +493,16 @@ class Trainer:
             return np.concatenate([np.arange(n), np.arange(pad) % n])
 
         def val_weights(bi: int, b: int) -> torch.Tensor:
-            pos = np.arange(bi * cfg.batch_size, bi * cfg.batch_size + b)
+            """This rank's b rows of val batch bi: 1 for a real sample."""
+            pos = np.arange(bi * cfg.batch_size + r0,
+                            bi * cfg.batch_size + r0 + b)
             return torch.from_numpy(
                 (pos < len(val_ds)).astype(np.float32)).to(dev)
 
-        csv_log = CSVLogger(out / "training_metrics.csv",
-                            SCHEMAS[cfg.metrics_schema])
-        history = JSONHistory(out / "history.json")
+        if main:
+            csv_log = CSVLogger(out / "training_metrics.csv",
+                                SCHEMAS[cfg.metrics_schema])
+            history = JSONHistory(out / "history.json")
 
         best_dice, best_epoch, no_improve = -1.0, -1, 0
         start_epoch = images_seen = 0
@@ -461,9 +571,9 @@ class Trainer:
                 for bi, (imgs, masks) in enumerate(loader(order)):
                     b = imgs.shape[0]
                     if src_of_global is not None:
+                        lo = bi * cfg.batch_size + r0
                         sw = torch.from_numpy(w_epoch[src_of_global[
-                            order[bi * cfg.batch_size:
-                                  bi * cfg.batch_size + b]]]).to(dev)
+                            order[lo:lo + b]]]).to(dev)
                     else:
                         sw = ones[:b]
                     loss, ok, comps = self.train_step(
@@ -472,8 +582,8 @@ class Trainer:
                     oks.append(ok)
                     if comps:
                         comps_acc.append(comps)
-                    images_seen += b
-                    timer.step(b)
+                    images_seen += b * self.world
+                    timer.step(b * self.world)
 
             vlosses, vns, sum_acc = [], [], []
             for bi, (imgs, masks) in enumerate(val_loader(val_order())):
@@ -519,8 +629,9 @@ class Trainer:
                 # wall-clock epoch rate, train + val, after the sync above
                 row["images_per_sec"] = round(
                     timer.rates()["images_per_sec"], 2)
-            csv_log.append(row)
-            history.append(row)
+            if main:
+                csv_log.append(row)
+                history.append(row)
             log(f"Epoch {epoch + 1}/{cfg.epochs} | Train {train_loss:.4f} | "
                 f"Val {val_loss:.4f} | Dice {row['val_dice']:.4f} | "
                 f"IoU {row['val_iou']:.4f}")
@@ -528,16 +639,17 @@ class Trainer:
             stop_early = False
             if row["val_dice"] > best_dice:
                 best_dice, best_epoch, no_improve = row["val_dice"], epoch, 0
-                ckpt_lib.save_best(
-                    best_pth, state.model, epoch, row["val_dice"],
-                    row["val_iou"],
-                    self._opt_cpu(state) if cfg.save_optimizer_state
-                    else None)
+                if main:
+                    ckpt_lib.save_best(
+                        best_pth, state.model, epoch, row["val_dice"],
+                        row["val_iou"],
+                        self._opt_cpu(state) if cfg.save_optimizer_state
+                        else None)
             else:
                 no_improve += 1
                 stop_early = no_improve >= cfg.patience
 
-            if cfg.save_last:
+            if cfg.save_last and main:
                 ckpt_lib.save(self._last_snapshot(
                     state, epoch=epoch, best_dice=best_dice,
                     best_epoch=best_epoch, no_improve=no_improve,
@@ -548,6 +660,7 @@ class Trainer:
                 break
             if (cfg.stop_after_epoch is not None
                     and epoch + 1 - start_epoch >= cfg.stop_after_epoch):
+                mesh.barrier("last_checkpoint_written")
                 log(f"Stopping after {cfg.stop_after_epoch} epoch(s) of "
                     "this run (stop_after_epoch).")
                 return {"interrupted": True, "epoch": epoch,
@@ -555,7 +668,8 @@ class Trainer:
                         "checkpoint": str(best_pth), "state": state}
 
         elapsed = time.time() - t_start
-        # ---- threshold sweep on the best checkpoint
+        # ---- threshold sweep on the best checkpoint, which rank 0 wrote
+        mesh.barrier("best_checkpoint_written")
         state.model.load_state_dict(
             ckpt_lib.load(best_pth)["model_state_dict"])
         lo, hi, n = cfg.threshold_sweep
@@ -575,8 +689,11 @@ class Trainer:
         else:
             dice_t = iou_t = np.zeros(len(thresholds), np.float32)
         k = int(np.argmax(dice_t))
-        ckpt_lib.save_threshold_sidecar(best_pth, thresholds[k],
-                                        float(dice_t[k]), float(iou_t[k]))
+        if main:
+            ckpt_lib.save_threshold_sidecar(best_pth, thresholds[k],
+                                            float(dice_t[k]),
+                                            float(iou_t[k]))
+        mesh.barrier("threshold_sidecar_written")
         log(f"Best threshold: {thresholds[k]:.2f} | Dice {dice_t[k]:.4f}")
 
         return {"best_val_dice": best_dice, "best_epoch": best_epoch,

@@ -169,12 +169,38 @@ def read_rgb(path, device="cpu") -> Optional[np.ndarray]:
             f"reading {path.name} needs OpenCV (cv2), which is not "
             "installed; without it only PNG inputs are read (and JPEG "
             "on a card, through nvJPEG)")
-    img = decode_png(path.read_bytes())
+    return _png_rgb(decode_png(path.read_bytes()))
+
+
+def _png_rgb(img: np.ndarray) -> np.ndarray:
     if img.ndim == 2:
         return np.repeat(img[..., None], 3, axis=-1)
     if img.shape[2] == 2:                  # gray + alpha
         return np.repeat(img[..., :1], 3, axis=-1)
     return np.ascontiguousarray(img[..., :3])
+
+
+def decode_rgb(data: bytes, device="cpu") -> Optional[np.ndarray]:
+    """Encoded image bytes -> HxWx3 uint8 RGB, or None for bytes that are
+    neither PNG nor JPEG. PNG through the zlib codec; JPEG on a card by
+    nvJPEG for a CUDA `device` (EXIF orientation applied), else through
+    cv2, and without cv2 it raises."""
+    if data[:8] == _PNG_SIG:
+        return _png_rgb(decode_png(data))
+    if data[:3] != b"\xff\xd8\xff":
+        return None
+    if _device_type(device) == "cuda":
+        from cartseg_tpu_torch.utils import jpeg
+
+        return jpeg.decode_to_host(data, False, device)
+    if not have_cv2():
+        raise RuntimeError("decoding a JPEG on the CPU needs OpenCV (cv2), "
+                           "which is not installed; on a card nvJPEG "
+                           "decodes it")
+    import cv2
+
+    bgr = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+    return None if bgr is None else cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)
 
 
 def read_gray(path, device="cpu") -> Optional[np.ndarray]:

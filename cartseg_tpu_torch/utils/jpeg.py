@@ -236,17 +236,24 @@ def apply_orientation(img: np.ndarray, orientation: int) -> np.ndarray:
     return np.ascontiguousarray(img)
 
 
-def _read(path, gray: bool, device) -> np.ndarray:
+def decode_to_host(data: bytes, gray: bool = False, device="cuda",
+                   name: str = "<bytes>") -> np.ndarray:
+    """JPEG bytes -> HxWx3 RGB (HxW luma when gray) uint8 on the host,
+    decoded by nvJPEG on `device` on the thread's own stream, turned by
+    its EXIF orientation as cv2.imread turns it."""
     import torch
 
-    path = Path(path)
-    data = path.read_bytes()
     dec = _decoder(device)
     with torch.cuda.stream(dec.stream):
-        out = decode(data, gray, dec.device, name=path.name)
+        out = decode(data, gray, dec.device, name=name)
         dec.stream.synchronize()
         host = out.cpu().numpy()
     return apply_orientation(host, exif_orientation(data))
+
+
+def _read(path, gray: bool, device) -> np.ndarray:
+    path = Path(path)
+    return decode_to_host(path.read_bytes(), gray, device, path.name)
 
 
 def read_rgb(path, device="cuda") -> np.ndarray:

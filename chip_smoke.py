@@ -189,6 +189,31 @@ Phases, in order; any failure raises and the exit code is non-zero:
         the rest within 1e-6); evaluate --sweep on the JPEG tree; the
         pseudo-label program with edge_method='sobel' on 4a's frames
         (cc and median launched, reach not); the phase's wall;
+     k. serving with cv2 and PIL refused: 4e's resnet34-UNet model.pth
+        and its sidecar exported by serve/export.py at the JAX defaults
+        (512^2, batch 16, bf16; torch.export), loaded on the card, its
+        probabilities on a device batch against the eager forward (bit
+        for bit, or within SERVE_EXPORT_TOL, and which); ms a device batch
+        and img/s; 64 POST /segment requests of the 1280x720 JPEG
+        fixtures from 8 client threads to serve/server.py's HTTP server
+        on 127.0.0.1 at a free port (nvJPEG decodes, the port's PNG
+        encoder answers), each mask equal to ServedSegmenter.segment on
+        the same frame; request latency p50 / p99 at max_latency_ms 20
+        and requests a device call;
+     l. data parallelism: (a) two ranks on the one card over gloo, under
+        torchrun (this file as the rank, --ddp-worker), through
+        train_bce_dice's entry point at its CONFIG (global bs6, 3 a rank)
+        on 4b's tree for one epoch in each BN lane: the ranks' parameters
+        and BN buffers equal bit for bit, channel_sums launched 2 x 46
+        times a step in each rank of the kernel lane and never in the
+        torch lane's, and the first fp32 step (TF32 off, 4e's weights and
+        batch) equal across the ranks and within 4e's limit of the
+        one-process step; (b) one rank with NCCL through the same entry
+        point; (c) the pseudo-label program through
+        shard_inference_program over [cuda:0, cuda:0] on 4a's bs64 batch:
+        each 32-row shard equal bit for bit to the unsharded program on
+        its rows, the whole batch within SHARD_TOL of the unsharded one,
+        cc, reach and the median launched;
   5. timing with CUDA events: the pseudo-label program per bs64 batch;
      CC on the path's masks, cart-like blobs and the mixed masks, and
      reach on the path's Canny maps, beside their bounds, with the CUDA
@@ -263,8 +288,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
      device-resident batch of 4h's JPEG frames), and post_clean on one
      1536^2 mask: its wall, and its device time split into the CC
      kernel, the component statistics and the morphology.
-The line before the last holds the kernels' JSON record, the one before
-it the card's name and power limit, and the last line
+Near the end, one line each repeats 4k's and 4l's numbers and one gives
+every phase's wall. The line before the last holds the kernels' JSON
+record, the one before it the card's name and power limit, and the last
+line
 {"ok": true, "device": {...}}.
 """
 
@@ -4537,6 +4564,364 @@ def phase_toolchain_timing(dev, pth: Path, images: Path, jmr: Path,
         f"{total - label - stats - morph:.4f} (selects, compares) [{card}]")
 
 
+# -------------------------------------- serving and data parallelism (4k, 4l)
+
+# the serving artifact at the JAX export defaults (serve/export.py:94-106)
+SERVE_IMG, SERVE_BS, SERVE_DTYPE = 512, 16, "bfloat16"
+# requests, client threads and the micro-batcher's flush timer
+SERVE_REQUESTS, SERVE_CLIENTS, SERVE_LATENCY_MS = 64, 8, 20.0
+# the artifact's probabilities against the eager forward, where
+# torch.export would run other kernels: one bf16 ulp at 1 (2^-8); the
+# check prints which held, bit for bit or this bound
+SERVE_EXPORT_TOL = 2.0 ** -8
+# data-parallel ranks on the one card (gloo), and the global batch
+DDP_RANKS = 2
+# the sharded pseudo-label program against the unsharded one on the whole
+# bs64 batch: the halves run at batch 32, where cuDNN may pick other
+# convolution algorithms than at 64 (bf16): probabilities and QC
+# statistics within SHARD_TOL, masks equal where |p - thr| > SHARD_TOL
+SHARD_TOL = 1e-2
+SHARD_DEVICES = 2
+
+
+def serve_frames() -> list:
+    """(name, JPEG bytes) of 4h's 1280x720 fixtures."""
+    return [(s, (FIXTURES / f"{s}.jpeg").read_bytes()) for s in TRAIN_JPEGS]
+
+
+def phase_serve(tmp: Path, pth: Path, frames: np.ndarray, dev,
+                card: str) -> dict:
+    """Phase 4k: 4e's resnet34-UNet model.pth and its sidecar exported at
+    512^2, batch 16, bf16 (serve/export.py), loaded on the card; its
+    probabilities on a device batch against the eager forward; then 64
+    POST /segment requests of the 1280x720 JPEG fixtures from 8 client
+    threads to the HTTP server on 127.0.0.1 at a free port (cv2 and PIL
+    refused by the caller), each returned mask equal to
+    ServedSegmenter.segment on the same frame. Prints ms a device batch
+    (CUDA events) and img/s, request latency p50 / p99 and requests a
+    device call."""
+    import threading
+    import urllib.request
+
+    from cartseg_tpu_torch.infer.engine import read_threshold_sidecar
+    from cartseg_tpu_torch.serve import (SegmentationService,
+                                         export_segmenter, load_segmenter)
+    from cartseg_tpu_torch.serve.export import inference_module
+    from cartseg_tpu_torch.serve.server import make_http_server
+    from cartseg_tpu_torch.utils import image_io
+
+    t0 = time.perf_counter()
+    art = export_segmenter(tmp / "artifact", checkpoint=pth,
+                           encoder="resnet34",
+                           img_hw=(SERVE_IMG, SERVE_IMG),
+                           batch_size=SERVE_BS, compute_dtype=SERVE_DTYPE,
+                           device="cuda")
+    export_s = time.perf_counter() - t0
+    served = load_segmenter(art)
+    m = served.manifest
+    if (m["threshold"] != read_threshold_sidecar(pth)
+            or m["platforms"] != ["cuda"] or served.device.type != "cuda"):
+        raise AssertionError(f"4k: the artifact's manifest {m}")
+    sd = torch.load(pth, map_location="cpu",
+                    weights_only=True)["model_state_dict"]
+    eager = inference_module(sd, "resnet34", dev, SERVE_DTYPE, False)
+    x = torch.from_numpy(frames[:SERVE_BS]).to(dev)
+    with torch.inference_mode():
+        got, want = served._program(x), eager(x)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        err = float((got - want).abs().max())
+        ms = cuda_ms(lambda: served._program(x), 20)
+        eager_ms = cuda_ms(lambda: eager(x), 20)
+    log(f"  artifact {art.name}: exported in {export_s:.1f} s "
+        f"(torch.export, resnet34 {SERVE_IMG}^2 batch {SERVE_BS} "
+        f"{SERVE_DTYPE}, threshold {m['threshold']:.2f} from the sidecar); "
+        f"its probabilities against the eager prepare_model forward on a "
+        f"device batch of {SERVE_BS}: "
+        + ("equal bit for bit" if same else
+           f"max |d| {err:.3e} (limit {SERVE_EXPORT_TOL:.3e})"))
+    if not same and not err <= SERVE_EXPORT_TOL:
+        raise AssertionError("4k: the artifact disagrees with the eager "
+                             "forward")
+    log(f"  artifact: {ms:.3f} ms a device batch of {SERVE_BS} (CUDA "
+        f"events), {SERVE_BS * 1e3 / ms:.1f} img/s; eager module "
+        f"{eager_ms:.3f} ms [{card}]")
+
+    jpegs = serve_frames()
+    svc = SegmentationService(art, max_latency_ms=SERVE_LATENCY_MS)
+    srv = make_http_server(svc, 0)
+    port = srv.server_address[1]
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    lat, bodies, errs = [], {}, []
+    lock = threading.Lock()
+
+    def client(c: int) -> None:
+        for i in range(c, SERVE_REQUESTS, SERVE_CLIENTS):
+            name, body = jpegs[i % len(jpegs)]
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/segment", data=body,
+                method="POST")
+            try:
+                t = time.perf_counter()
+                with urllib.request.urlopen(req, timeout=120) as r:
+                    out = r.read()
+                with lock:
+                    lat.append(time.perf_counter() - t)
+                    bodies[i] = (name, out)
+            except Exception as e:  # noqa: BLE001 - reported below
+                errs.append(f"request {i}: {e!r}")
+
+    try:
+        svc.device_calls = svc.requests = 0
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(c,))
+                   for c in range(SERVE_CLIENTS)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=300)
+        wall = time.perf_counter() - t0
+        calls, reqs = svc.device_calls, svc.requests
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        svc.close()
+    if errs or len(bodies) != SERVE_REQUESTS:
+        raise AssertionError(f"4k: {len(bodies)} of {SERVE_REQUESTS} "
+                             f"answered; {errs[:3]}")
+    refs = {}
+    for name, body in jpegs:
+        refs[name] = served.segment(image_io.decode_rgb(body, dev))
+    bad = [i for i, (name, out) in bodies.items()
+           if not np.array_equal(image_io.decode_png(out), refs[name])]
+    lat_ms = np.sort(np.asarray(lat)) * 1e3
+    p50, p99 = (float(np.percentile(lat_ms, q)) for q in (50, 99))
+    log(f"  HTTP: {SERVE_REQUESTS} POST /segment of {len(jpegs)} 1280x720 "
+        f"JPEG fixtures from {SERVE_CLIENTS} client threads, 127.0.0.1:"
+        f"{port}, max_latency_ms {SERVE_LATENCY_MS:g}: {wall:.2f} s wall, "
+        f"{SERVE_REQUESTS / wall:.1f} requests/s; latency p50 {p50:.1f} ms, "
+        f"p99 {p99:.1f} ms; {reqs} requests in {calls} device calls "
+        f"({reqs / max(calls, 1):.2f} a call); masks equal to "
+        f"ServedSegmenter.segment: {SERVE_REQUESTS - len(bad)}/"
+        f"{SERVE_REQUESTS} [{card}]")
+    if bad:
+        raise AssertionError(f"4k: requests {bad[:8]} answered other masks "
+                             "than segment()")
+    return {"batch_ms": ms, "img_s": SERVE_BS * 1e3 / ms, "p50": p50,
+            "p99": p99, "per_call": reqs / max(calls, 1)}
+
+
+def ddp_worker(out: Path, train_args: list) -> None:
+    """One rank under torchrun (`python3 chip_smoke.py --ddp-worker OUT --
+    ARGS`, phase 4l): the group from torchrun's environment; where
+    OUT/grad_in.pt exists, the first step of train_bce_dice's CONFIG in
+    fp32 (TF32 off) from its weights on this rank's rows of its batch;
+    then train_bce_dice's entry point with ARGS. Writes OUT/rank<r>.pt:
+    the backend, the step's gradient (first moment / 0.1) and launches,
+    the run's steps and launches, the final state and the channel_sums
+    arrival-counter rows in use."""
+    import torch.distributed as dist
+
+    from cartseg_tpu_torch.device import fp32_policy
+    from cartseg_tpu_torch.ops.cuda import build
+    from cartseg_tpu_torch.ops.cuda import channel_sums as cs
+    from cartseg_tpu_torch.parallel import mesh
+    from cartseg_tpu_torch.train import Trainer
+    from cartseg_tpu_torch.train.config import apply_cli_overrides
+    from cartseg_tpu_torch.workloads import train_bce_dice as cli
+    from cartseg_tpu_torch.workloads._runner import bn_lane_from_env
+
+    mesh.maybe_initialize_distributed("cuda")
+    rank = mesh.process_index()
+    res = {"backend": dist.get_backend(), "world": mesh.process_count(),
+           "device": torch.cuda.current_device()}
+    grad_in = out / "grad_in.pt"
+    if grad_in.exists():
+        g = torch.load(grad_in, weights_only=True)
+        cfg = apply_cli_overrides(cli.CONFIG, ["--device", "cuda",
+                                               "--compute_dtype", "float32"])
+        tr = Trainer(cfg, bn_lane_from_env())
+        st = tr.init_state()
+        st.model.load_state_dict(g["sd"])
+        rows = mesh.host_batch_slice(g["imgs"].shape[0])
+        build.reset_launch_counts()
+        with fp32_policy():
+            tr.train_step(st, g["imgs"][rows].cuda(),
+                          g["masks"][rows].cuda(),
+                          torch.ones(rows.stop - rows.start, device="cuda"),
+                          [1e-4] * 3, [1.0] * 3, tr.group_ids(st))
+        torch.cuda.synchronize()
+        res["grad"] = {k: (v / 0.1).cpu() for k, v in st.opt.mu.items()}
+        res["grad_launches"] = build.LAUNCHES["channel_sums"]
+        del tr, st
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = cli.main(train_args, log=lambda m: None)
+    torch.cuda.synchronize()
+    res["wall"] = time.perf_counter() - t0
+    res["launches"] = dict(build.LAUNCHES)
+    res["steps"] = result["state"].step
+    res["state"] = {k: v.cpu() for k, v in
+                    result["state"].model.state_dict().items()}
+    res["counter_rows"] = len(cs._ARRIVALS.rows)
+    torch.save(res, out / f"rank{rank}.pt")
+    mesh.barrier("written")
+    dist.destroy_process_group()
+
+
+def torchrun(out: Path, nproc: int, train_args: list, env: dict) -> list:
+    """nproc ranks of ddp_worker under torchrun (a free rendezvous port on
+    localhost); their results, in rank order."""
+    out.mkdir(parents=True, exist_ok=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(nproc), str(Path(__file__).resolve()),
+           "--ddp-worker", str(out), "--", *train_args]
+    proc = subprocess.run(cmd, env={**os.environ, **env}, cwd=str(
+        Path(__file__).resolve().parent), capture_output=True, text=True,
+        timeout=600)
+    if proc.returncode != 0:
+        tail = (proc.stdout[-3000:] + "\n" + proc.stderr[-6000:])
+        hint = ("; gloo could not carry CUDA tensors on this machine"
+                if "gloo" in tail.lower() and "cuda" in tail.lower() else "")
+        raise AssertionError(f"4l: torchrun of {nproc} rank(s) failed "
+                             f"(exit {proc.returncode}){hint}:\n{tail}")
+    return [torch.load(out / f"rank{r}.pt", weights_only=False)
+            for r in range(nproc)]
+
+
+def phase_ddp_train(tmp: Path, ir: Path, mr: Path, ref: dict,
+                    card: str) -> dict:
+    """Phase 4l (a) and (b). (a) DDP_RANKS ranks on the one card over gloo
+    through torchrun and train_bce_dice's entry point at its CONFIG
+    (resnet34-UNet, 512^2, global bs6, 3 a rank, bf16, BCE+Dice) on 4b's
+    tree for one epoch, in each BN lane: the ranks' parameters and BN
+    buffers equal bit for bit, channel_sums launched in each rank of the
+    kernel lane (2 per BN and step) and in none of the torch lane's; the
+    first fp32 step's gradient (TF32 off, 4e's weights and batch, draws at
+    the global batch) equal across the ranks and no farther from the one-
+    process fp32 step of its lane (4e) than 4e's limit between the lanes,
+    twice the torch lane's fp32 distance from float64. (b) One rank with
+    NCCL through the same entry point for one epoch."""
+    common = ["--images_root", str(ir), "--masks_root", str(mr), "--epochs",
+              "1", "--device", "cuda"]
+    torch.save({"sd": ref["sd"], "imgs": ref["imgs"].cpu(),
+                "masks": ref["masks"].cpu()}, tmp / "ddp_grad_in.pt")
+    runs = {}
+    for lane, switch in (("channel_sums", "force"), ("torch", "0")):
+        out = tmp / f"ddp_{lane}"
+        out.mkdir(parents=True, exist_ok=True)
+        (out / "grad_in.pt").symlink_to(tmp / "ddp_grad_in.pt")
+        t0 = time.perf_counter()
+        ranks = torchrun(out, DDP_RANKS, common + ["--out_dir",
+                                                   str(out / "run")],
+                         {"CARTSEG_PALLAS_BN": switch})
+        wall = time.perf_counter() - t0
+        r0, r1 = ranks
+        diff = [k for k, v in r0["state"].items()
+                if not torch.equal(v, r1["state"][k])]
+        gdiff = [k for k, v in r0["grad"].items()
+                 if not torch.equal(v, r1["grad"][k])]
+        want = ref["grads"][lane]
+        dist_one = _rel_l2({k: v.double() for k, v in r0["grad"].items()},
+                           want)
+        limit = 2 * ref["e_t"]
+        steps = [r["steps"] for r in ranks]
+        per_rank = [r["launches"]["channel_sums"] for r in ranks]
+        expect = [2 * BCE_BN_LAYERS * s if switch == "force" else 0
+                  for s in steps]
+        others = {k: v for r in ranks for k, v in r["launches"].items()
+                  if k != "channel_sums" and v}
+        log(f"  (a) {lane} lane: {DDP_RANKS} ranks on cuda:"
+            f"{r0['device']}/{r1['device']} over {r0['backend']}, "
+            f"{steps[0]} steps of 3 rows each in {wall:.1f} s wall "
+            f"(torchrun, init, val, sweep; the ranks' fits "
+            f"{r0['wall']:.1f} / {r1['wall']:.1f} s); parameters and "
+            f"buffers equal across the ranks: {len(diff) == 0} "
+            f"({len(r0['state'])} tensors); channel_sums launches per rank "
+            f"{per_rank} (want {expect}), in the fp32 step "
+            f"{[r['grad_launches'] for r in ranks]}; arrival-counter rows "
+            f"per rank {[r['counter_rows'] for r in ranks]}; first fp32 "
+            f"step's gradient equal across the ranks: {len(gdiff) == 0}, "
+            f"rel L2 to the one-process step {dist_one:.3e} (limit "
+            f"{limit:.3e}, 2x the torch lane's fp32 distance from float64, "
+            f"4e) [{card}]")
+        if (diff or gdiff or per_rank != expect or others
+                or not dist_one <= limit or r0["backend"] != "gloo"):
+            raise AssertionError(f"4l (a) {lane} lane: state diff "
+                                 f"{diff[:3]}, grad diff {gdiff[:3]}, "
+                                 f"launches {per_rank} want {expect}, "
+                                 f"others {others}, backend "
+                                 f"{r0['backend']}")
+        runs[lane] = {"launches": per_rank, "steps": steps[0],
+                      "dist": dist_one, "wall": wall}
+    out = tmp / "ddp_nccl"
+    t0 = time.perf_counter()
+    (r0,) = torchrun(out, 1, common + ["--out_dir", str(out / "run")],
+                     {"CARTSEG_PALLAS_BN": "0"})
+    wall = time.perf_counter() - t0
+    log(f"  (b) one rank over {r0['backend']} through the entry point: "
+        f"{r0['steps']} steps in {wall:.1f} s wall (DDP, BN sums "
+        f"all-reduced by NCCL) [{card}]")
+    if r0["backend"] != "nccl" or r0["steps"] <= 0:
+        raise AssertionError(f"4l (b): backend {r0['backend']}, "
+                             f"{r0['steps']} steps")
+    runs["nccl"] = {"steps": r0["steps"], "wall": wall}
+    return runs
+
+
+def phase_shard(ckpts, frames: np.ndarray, dev, card: str) -> dict:
+    """Phase 4l (c): pseudo_label_program through shard_inference_program
+    over [cuda:0, cuda:0] on 4a's bs64 batch: each 32-row shard equal bit
+    for bit to the unsharded program on the same rows, the whole batch
+    within SHARD_TOL of the unsharded batch, cc, reach and the median
+    launched by the sharded call."""
+    from cartseg_tpu_torch.infer.engine import (load_member,
+                                                pseudo_label_program)
+    from cartseg_tpu_torch.infer.pseudo_labels import (IMAGENET_MEAN,
+                                                       IMAGENET_STD)
+    from cartseg_tpu_torch.ops.cuda import build
+    from cartseg_tpu_torch.parallel import shard_inference_program
+
+    members = [load_member(p, device=dev) for p in ckpts]
+    prog = pseudo_label_program(members, IMAGENET_MEAN, IMAGENET_STD,
+                                min_area=int(S * S * 0.001))
+    devs = [torch.device("cuda", torch.cuda.current_device())] * \
+        SHARD_DEVICES
+    sharded = shard_inference_program(prog, B, devs,
+                                      log=lambda m: log(f"  {m}"))
+    x = torch.from_numpy(frames).to(dev)
+    build.reset_launch_counts()
+    pred, probs, stats = sharded(x, 0.5)
+    torch.cuda.synchronize()
+    launches = {k: build.LAUNCHES[k] for k in PSEUDO_KERNELS}
+    k = B // SHARD_DEVICES
+    bit = []
+    for i in range(SHARD_DEVICES):
+        rows = slice(i * k, (i + 1) * k)
+        p1, q1, s1 = prog(x[rows], 0.5)
+        bit.append(torch.equal(p1, pred[rows]) and torch.equal(q1, probs[rows])
+                   and all(torch.equal(s1[n], stats[n][rows]) for n in s1))
+    p0, q0, s0 = prog(x, 0.5)
+    perr = float((q0 - probs).abs().max())
+    far = (q0 - 0.5).abs() > SHARD_TOL
+    serr = max(float((s0[n] - stats[n]).abs().max()) for n in s0)
+    flips = int((p0 != pred).sum())
+    log(f"  (c) pseudo_label_program over {SHARD_DEVICES} x cuda:"
+        f"{devs[0].index} on 4a's [{B},{S},{S},3] batch: each {k}-row shard "
+        f"equal bit for bit to the unsharded program on its rows: {bit}; "
+        f"whole batch against the unsharded batch: probs max |d| "
+        f"{perr:.3e}, QC stats max |d| {serr:.3e} (limit {SHARD_TOL:g}), "
+        f"{flips} mask pixels differ ({int((p0 != pred)[far].sum())} of them "
+        f"farther than {SHARD_TOL:g} from the threshold); launches "
+        f"{launches} [{card}]")
+    if (not all(bit) or perr > SHARD_TOL or serr > SHARD_TOL
+            or not torch.equal(p0[far], pred[far])
+            or min(launches.values()) <= 0):
+        raise AssertionError("4l (c): the sharded program disagrees")
+    return {"launches": launches, "perr": perr, "serr": serr}
+
+
 def main() -> int:
     from cartseg_tpu_torch.device import require_cuda
 
@@ -4547,6 +4932,13 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
 
     from cartseg_tpu_torch.ops.cuda import build
+
+    walls, mark = {}, [time.perf_counter()]
+
+    def phase_done(name: str) -> None:
+        now = time.perf_counter()
+        walls[name] = now - mark[0]
+        mark[0] = now
 
     log("phase 2: build")
     t0 = time.perf_counter()
@@ -4584,6 +4976,7 @@ def main() -> int:
         log(f"  synthetic tree: {SESSIONS}x{B} PNG frames "
             f"{FRAME_HW[1]}x{FRAME_HW[0]} in {time.perf_counter() - t0:.1f} s")
 
+        phase_done("1-2")
         log("phase 3: kernels against their plain versions")
         errs = phase_compare(frames, dev)
         fwd_errs = phase_compare_flash(dev)
@@ -4596,34 +4989,49 @@ def main() -> int:
         errs["channel_sums"] = phase_compare_channel_sums(dev)
         errs.update(phase_compare_zoo(dev))
 
+        phase_done("3")
         log("phase 4a: pseudo-label workload")
         launches, ckpts = phase_workload(tmp, dev)
         phase_reference(ckpts, frames, dev)
 
+        phase_done("4a")
         log("phase 4b: training workload (train_bce_dice_abl)")
         ir, mr = make_train_tree(tmp)
         train_launches, hist = phase_train_workload(tmp, dev, ir, mr)
         phase_train_reference(dev)
 
+        phase_done("4b")
         log("phase 4c: SAM ViT-B predictor (tools/annotate.load_sam)")
         sam_launches, pred, sam_frames = phase_sam(tmp, dev)
         phase_sam_reference(tmp, pred, sam_frames, dev)
 
+        phase_done("4c")
         log("phase 4d: SAM ViT-B encoder fine-tune step")
         sam_train = phase_sam_train(tmp, dev)
 
+        phase_done("4d")
         log("phase 4e: BCE+Dice training workload (train_bce_dice), both "
             "BN lanes")
         bce_runs = phase_bce_workload(tmp, dev, ir, mr)
         bce_ref = phase_bce_reference(dev)
+        # what phase 4l holds its data-parallel step against
+        ddp_ref = {"sd": {k: v.cpu() for k, v in bce_ref["sd"].items()},
+                   "imgs": bce_ref["imgs"].cpu(),
+                   "masks": bce_ref["masks"].cpu(), "e_t": bce_ref["e_t"],
+                   "grads": {lane: {k: v.cpu() for k, v in
+                                    bce_ref["outs"][lane][1].items()}
+                             for lane in BN_LANES}}
 
+        phase_done("4e")
         log("phase 4f: the loss zoo through cartseg_tpu_torch.losses")
         zoo_launches = phase_loss_zoo(dev)
 
+        phase_done("4f")
         log("phase 4g: SDF boundary-loss training workload "
             "(train_with_boundary_loss)")
         phase_boundary_workload(tmp, dev, ir, mr)
 
+        phase_done("4g")
         log("phase 4h: camera JPEGs with cv2 and PIL refused: nvJPEG, the "
             "native loader, the pretrained-encoder and CONFIG workloads, "
             "pseudo-labels")
@@ -4634,6 +5042,7 @@ def main() -> int:
             phase_config_workloads(tmp, jir, jmr, jmr_plain)
             pseudo_jpeg = phase_pseudo_jpeg(tmp, pretrained["pth"])
 
+        phase_done("4h")
         log("phase 4i: mixed-source fine-tuning, UNet++, remat, traces and "
             "the classic UNet, cv2 and PIL refused")
         with refuse_modules("cv2", "PIL"):
@@ -4647,6 +5056,7 @@ def main() -> int:
             del bce_ref
             phase_classic(dev)
 
+        phase_done("4i")
         log("phase 4j: the cleaning, mining, ranking and evaluation "
             "toolchain, cv2, PIL and pandas refused")
         t0 = time.perf_counter()
@@ -4660,6 +5070,20 @@ def main() -> int:
             phase_evaluate(pretrained["pth"], jir, jmr, tmp)
             phase_sobel(ckpts, frames, dev)
         log(f"  phase 4j wall: {time.perf_counter() - t0:.1f} s")
+        phase_done("4j")
+
+        log("phase 4k: serving: the torch.export artifact and the "
+            "micro-batching HTTP server, cv2 and PIL refused")
+        with refuse_modules("cv2", "PIL"):
+            serve = phase_serve(tmp, tmp / "run_bce_unet_torch" /
+                                "model.pth", frames, dev, card)
+        phase_done("4k")
+        log("phase 4l: data parallelism: DDP over gloo on one card, one "
+            "NCCL rank, the sharded inference program")
+        ddp = phase_ddp_train(tmp, ir, mr, ddp_ref, card)
+        del ddp_ref
+        shard = phase_shard(ckpts, frames, dev, card)
+        phase_done("4l")
 
         log("phase 5: timing")
         timing = phase_timing(ckpts, frames, dev, card)
@@ -4676,6 +5100,7 @@ def main() -> int:
         with refuse_modules("cv2", "PIL", "pandas"):
             phase_toolchain_timing(dev, pretrained["pth"],
                                    pseudo_jpeg["images"], jmr, card)
+        phase_done("5")
 
     launches.update({k: train_launches[k] for k in TRAIN_KERNELS})
     launches.update({k: sam_launches[k] for k in SAM_KERNELS})
@@ -4716,6 +5141,22 @@ def main() -> int:
         launches[k] = zoo_launches[k]
         ms, plain, lib, b, by = zoo_timing[k]
         times[k], bounds[k], library[k] = (ms, plain), (b, by), lib
+    # the tail of the output keeps these, whatever phase 5 printed
+    log(f"4k serving: {serve['batch_ms']:.3f} ms a device batch of "
+        f"{SERVE_BS}, {serve['img_s']:.1f} img/s; request latency p50 "
+        f"{serve['p50']:.1f} ms, p99 {serve['p99']:.1f} ms at "
+        f"max_latency_ms {SERVE_LATENCY_MS:g}; {serve['per_call']:.2f} "
+        f"requests a device call [{card}]")
+    log("4l data parallel: " + "; ".join(
+        f"{lane} lane channel_sums a rank {ddp[lane]['launches']} in "
+        f"{ddp[lane]['steps']} steps, first-step gradient rel L2 "
+        f"{ddp[lane]['dist']:.3e}, {ddp[lane]['wall']:.1f} s"
+        for lane in BN_LANES) + f"; NCCL rank {ddp['nccl']['steps']} "
+        f"steps; sharded program launches {shard['launches']}, probs "
+        f"{shard['perr']:.3e}, stats {shard['serr']:.3e} [{card}]")
+    log("phase walls (s): " + ", ".join(f"{k} {v:.1f}"
+                                        for k, v in walls.items())
+        + f"; total {sum(walls.values()):.1f}")
     record = {"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], "max_abs_err": errs[k],
@@ -4732,4 +5173,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddp-worker"]:
+        # one rank of phase 4l under torchrun: --ddp-worker OUT -- ARGS
+        ddp_worker(Path(sys.argv[2]), sys.argv[4:])
+        sys.exit(0)
     sys.exit(main())

@@ -273,6 +273,9 @@ def test_port_never_imports_jax():
     pkg = Path(cartseg_tpu_torch.__file__).parent
     files = sorted(pkg.rglob("*.py"))
     assert len(files) > 15
+    # the data-parallel and serving subsystems among them
+    assert {"parallel", "serve"} <= {f.relative_to(pkg).parts[0]
+                                     for f in files}
     banned = {"jax", "jaxlib", "flax", "optax", "cartseg_tpu"}
     for f in files:
         bad = imported_modules(f) & banned

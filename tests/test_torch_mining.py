@@ -194,8 +194,10 @@ def test_mining_previews_need_cv2(members, jpeg_free_tree, tmp_path,
 
 
 def test_mining_config_has_no_mesh():
-    with pytest.raises(TypeError):
-        TMi.MiningConfig(use_mesh=True)
+    # use_mesh is ported now: the JAX default, and a batch's rows split
+    # over this process's cards (one on the CPU: the program unchanged)
+    assert TMi.MiningConfig().use_mesh is True
+    assert TMi.MiningConfig(use_mesh=False).use_mesh is False
 
 
 def test_mining_cuda_is_refused_without_a_card(pth, jpeg_free_tree,
