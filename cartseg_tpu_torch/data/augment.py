@@ -8,10 +8,12 @@ per-sample flip, brightness/contrast, HSV, colour jitter, noise and
 motion-blur gates; ONE affine warp (rotate, zoom, shift-scale-rotate
 composed) whose parameters are shared across the batch, computed with
 the JAX gather math (bilinear taps from uint8, reflect-101 border,
-nearest for masks), not `grid_sample`. The random streams differ from
-JAX's: the tests hold each op at fixed drawn parameters and the
-marginals by KS tests. The JAX `per_sample_warp` option has no caller
-on this slice and raises.
+nearest for masks), not `grid_sample`. `per_sample_warp` (off by
+default, as in JAX) draws the warp's parameters per sample and resamples
+each row with its own affine, the same math with the parameters
+broadcast per row, in one gather over the batch. The random streams
+differ from JAX's: the tests hold each op at fixed drawn parameters and
+the marginals by KS tests.
 
 Layout: NHWC in and out ([B,H,W,3] images, [B,H,W,1] masks), as the
 JAX package; the engine hands the model an NCHW view.
@@ -108,17 +110,13 @@ def _reflect101(coord: torch.Tensor, n: int) -> torch.Tensor:
     return torch.where(c > n - 1, period - c, c)
 
 
-def _shared_affine_warp(images, masks, angle_deg, scale, ty, tx):
-    """One affine resample shared across the batch (augment.py:137-187).
-
-    images [B,H,W,C] uint8 or float (bilinear), masks [B,H,W,1]
-    (nearest); angle/scale/ty/tx 0-dim float32 tensors. Batch*channel
-    moves to the minor axis, so each bilinear tap is one shared-index
-    row gather, in the input dtype; only the 4 taps are lifted to
-    float32 for the lerp. Reflect-101 border. Returns float32 images.
-    """
-    B, H, W, C = images.shape
-    dev = images.device
+def _source_coords(H: int, W: int, angle_deg, scale, ty, tx, dev):
+    """The warp's taps: each output pixel's reflect-101 input coords
+    (sy, sx), their bilinear corners and weights, and the nearest pixel.
+    Parameters 0-dim give [H,W] maps, [B] give [B,H,W]."""
+    if angle_deg.dim():
+        angle_deg, scale, ty, tx = (t[:, None, None]
+                                    for t in (angle_deg, scale, ty, tx))
     th = -angle_deg * math.pi / 180.0
     cy, cx = (H - 1) / 2.0, (W - 1) / 2.0
     c, s = torch.cos(th), torch.sin(th)
@@ -140,20 +138,61 @@ def _shared_affine_warp(images, masks, angle_deg, scale, ty, tx):
     x0 = x0.clamp(0, W - 1)
     wy = (sy - y0)[..., None]
     wx = (sx - x0)[..., None]
+    # nearest for masks
+    yn = torch.round(sy).to(torch.int64).clamp(0, H - 1)
+    xn = torch.round(sx).to(torch.int64).clamp(0, W - 1)
+    return (y0, x0, y1, x1), (wy, wx), (yn, xn)
 
+
+def _lerp(gi, corners, weights):
+    (y0, x0, y1, x1), (wy, wx) = corners, weights
+    return (gi(y0, x0) * (1 - wy) * (1 - wx) + gi(y0, x1) * (1 - wy) * wx
+            + gi(y1, x0) * wy * (1 - wx) + gi(y1, x1) * wy * wx)
+
+
+def _per_sample_affine_warp(images, masks, angles, scales, tys, txs):
+    """Each row resampled with its own affine (augment.py:126-135, a
+    vmap of the shared warp over single-sample batches): the same math
+    as `_shared_affine_warp` with [B] parameters broadcast per row, and
+    one gather over the batch's flattened pixels per tap."""
+    B, H, W, C = images.shape
+    dev = images.device
+    corners, weights, (yn, xn) = _source_coords(H, W, angles, scales, tys,
+                                                txs, dev)
+    base = (torch.arange(B, device=dev) * (H * W))[:, None, None]
+    flat_img = images.reshape(B * H * W, C)
+
+    def gi(yi, xi):
+        taps = flat_img.index_select(0, (base + yi * W + xi).reshape(-1))
+        return taps.reshape(B, H, W, C).to(torch.float32)
+
+    out_img = _lerp(gi, corners, weights)
+    out_m = masks.reshape(B * H * W).index_select(
+        0, (base + yn * W + xn).reshape(-1))
+    return out_img, out_m.reshape(B, H, W, 1)
+
+
+def _shared_affine_warp(images, masks, angle_deg, scale, ty, tx):
+    """One affine resample shared across the batch (augment.py:137-187).
+
+    images [B,H,W,C] uint8 or float (bilinear), masks [B,H,W,1]
+    (nearest); angle/scale/ty/tx 0-dim float32 tensors. Batch*channel
+    moves to the minor axis, so each bilinear tap is one shared-index
+    row gather, in the input dtype; only the 4 taps are lifted to
+    float32 for the lerp. Reflect-101 border. Returns float32 images.
+    """
+    B, H, W, C = images.shape
+    corners, weights, (yn, xn) = _source_coords(H, W, angle_deg, scale, ty,
+                                                tx, images.device)
     flat_img = images.permute(1, 2, 0, 3).reshape(H * W, B * C)
 
     def gi(yi, xi):
         taps = flat_img.index_select(0, (yi * W + xi).reshape(-1))
         return taps.reshape(H, W, B * C).to(torch.float32)
 
-    out = (gi(y0, x0) * (1 - wy) * (1 - wx) + gi(y0, x1) * (1 - wy) * wx
-           + gi(y1, x0) * wy * (1 - wx) + gi(y1, x1) * wy * wx)
+    out = _lerp(gi, corners, weights)
     out_img = out.reshape(H, W, B, C).permute(2, 0, 1, 3)
 
-    # nearest for masks
-    yn = torch.round(sy).to(torch.int64).clamp(0, H - 1)
-    xn = torch.round(sx).to(torch.int64).clamp(0, W - 1)
     flat_m = masks.permute(1, 2, 0, 3).reshape(H * W, B)
     out_m = flat_m.index_select(0, (yn * W + xn).reshape(-1)).reshape(
         H, W, B)
@@ -275,15 +314,14 @@ def _motion_blur(img, do, d):
 def draw_augment(gen: torch.Generator, B: int, H: int, W: int,
                  cfg: AugmentConfig, device):
     """The draws of one batch of B rows, in order: U [17,B] uniforms (every
-    small per-sample draw, as JAX), u [9] (the warp's; None without a
-    warp) and noise [B,H,W,3] standard normals (None without the noise
-    op)."""
-    if cfg.per_sample_warp:
-        raise NotImplementedError(
-            "per_sample_warp is not ported (ROADMAP.md Queue 1 item 11)")
+    small per-sample draw, as JAX), u the warp's (None without a warp):
+    [9], or [9,B] with per_sample_warp, and noise [B,H,W,3] standard
+    normals (None without the noise op)."""
     U = torch.rand((17, B), generator=gen, device=device)
-    u = torch.rand((9,), generator=gen, device=device) if cfg.any_warp \
-        else None
+    u = None
+    if cfg.any_warp:
+        shape = (9, B) if cfg.per_sample_warp else (9,)
+        u = torch.rand(shape, generator=gen, device=device)
     noise = torch.randn((B, H, W, 3), generator=gen, device=device) \
         if cfg.noise_p > 0 else None
     return U, u, noise
@@ -298,8 +336,9 @@ def augment_batch(gen: torch.Generator, images_u8, masks,
     Under data parallelism the inputs are `rows` of a global batch of
     `batch` rows: the draws are made at the global size from the same
     generator state on every rank, and each rank takes its rows, so its
-    augmentation of global row i is the single-process one. The batch's
-    shared draws (the warp, the blur's direction: the global row 0's)
+    augmentation of global row i is the single-process one (the
+    per-sample warp's draws too). The batch's shared draws (the warp
+    without per_sample_warp, the blur's direction: the global row 0's)
     are every rank's."""
     B, H, W, _ = images_u8.shape
     U, u, noise = draw_augment(gen, B if batch is None else batch, H, W,
@@ -308,15 +347,18 @@ def augment_batch(gen: torch.Generator, images_u8, masks,
     if rows is not None:
         U = U[:, rows]
         noise = noise[rows] if noise is not None else None
+        if u is not None and cfg.per_sample_warp:
+            u = u[:, rows]
     return apply_augment(images_u8, masks, cfg, U, u, noise, blur_u)
 
 
 def apply_augment(images_u8, masks, cfg: AugmentConfig, U: torch.Tensor,
                   u, noise, blur_u=None):
-    """The pipeline at given draws: U [17,B] and u [9] uniforms in [0,1),
-    noise [B,H,W,3] standard normals (u / noise may be None when their
-    ops are off), blur_u the uniform of the blur's direction (U[16, 0]
-    when None). augment_batch draws them; the tests give JAX's."""
+    """The pipeline at given draws: U [17,B] and u [9] ([9,B] with
+    per_sample_warp) uniforms in [0,1), noise [B,H,W,3] standard normals
+    (u / noise may be None when their ops are off), blur_u the uniform of
+    the blur's direction (U[16, 0] when None). augment_batch draws them;
+    the tests give JAX's."""
     B, H, W, _ = images_u8.shape
     img = images_u8
     masks = masks.to(torch.float32)
@@ -329,7 +371,9 @@ def apply_augment(images_u8, masks, cfg: AugmentConfig, U: torch.Tensor,
 
     if cfg.any_warp:
         angle, scale, ty, tx = draw_warp_params(u, cfg, H, W)
-        img, masks = _shared_affine_warp(img, masks, angle, scale, ty, tx)
+        warp = _per_sample_affine_warp if cfg.per_sample_warp \
+            else _shared_affine_warp
+        img, masks = warp(img, masks, angle, scale, ty, tx)
     else:
         img = img.to(torch.float32)
 

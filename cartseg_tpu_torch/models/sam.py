@@ -48,7 +48,7 @@ from cartseg_tpu_torch.device import resolve_device
 from cartseg_tpu_torch.ops import flash_attention as fa
 
 __all__ = ["SamConfig", "Sam", "ImageEncoderViT", "PromptEncoder",
-           "MaskDecoder", "SamPredictor", "build_sam_vit_b",
+           "MaskDecoder", "SamEmbedding", "SamPredictor", "build_sam_vit_b",
            "load_sam_checkpoint", "MASK_DOWNSCALING_PREFIX"]
 
 # official checkpoint keys of the mask-prompt path, which is not built
@@ -639,12 +639,29 @@ def strip_mask_downscaling(state_dict: Mapping) -> dict:
 
 # ----------------------------------------------------------- predictor
 
+@dataclasses.dataclass(frozen=True)
+class SamEmbedding:
+    """An image's embedding with the geometry its prompts and masks are
+    mapped through: features (1, g, g, C), the image's (h, w) and its
+    resized (h, w) before the encoder's padding."""
+
+    features: torch.Tensor
+    orig_hw: Tuple[int, int]
+    input_hw: Tuple[int, int]
+
+
 class SamPredictor:
     """Drop-in for `segment_anything.SamPredictor` as the annotation tool
     drives it (cartseg_tpu/tools/annotate.py): `set_image`,
     `get_image_embedding`, `.features` injection and
     `predict(point_coords, point_labels, box, mask_input,
     multimask_output, return_logits)`, like `TpuSamPredictor`.
+
+    `embed(image)` computes an image's `SamEmbedding` and leaves the
+    predictor's state alone; `set_embedding(e)` installs one; `set_image`
+    is the two together. A thread that embeds images ahead of the one
+    that prompts them (tools/annotate.py `PrefetchWorker`) uses `embed`,
+    so a prompt always decodes against its own image's embedding.
 
     `state_dict` is an official-named SAM state dict (the
     `mask_downscaling` keys may be present and are dropped; any other
@@ -664,21 +681,32 @@ class SamPredictor:
         self._orig_hw: Optional[Tuple[int, int]] = None
         self._input_hw: Optional[Tuple[int, int]] = None
 
-    # --- SamPredictor API
     @torch.inference_mode()
-    def set_image(self, image_rgb: np.ndarray):
+    def embed(self, image_rgb: np.ndarray) -> SamEmbedding:
+        """The ViT-B embedding of an HxWx3 uint8 RGB image (resized so
+        its long side is img_size), without touching the predictor's
+        state."""
         from cartseg_tpu_torch.utils.image_io import resize_bilinear_u8
 
         h, w = image_rgb.shape[:2]
-        self._orig_hw = (h, w)
         scale = self.cfg.img_size / max(h, w)
         nh, nw = int(round(h * scale)), int(round(w * scale))
-        self._input_hw = (nh, nw)
         img = torch.from_numpy(np.ascontiguousarray(image_rgb)).to(
             self.device)
         img = resize_bilinear_u8(img, (nh, nw))
-        self.features = self.model.encode_image(
-            self.model.preprocess(img[None]))
+        feats = self.model.encode_image(self.model.preprocess(img[None]))
+        return SamEmbedding(feats, (h, w), (nh, nw))
+
+    def set_embedding(self, embedding: SamEmbedding) -> None:
+        """Install an embedding from `embed`: later prompts decode
+        against it."""
+        self.features = embedding.features
+        self._orig_hw = embedding.orig_hw
+        self._input_hw = embedding.input_hw
+
+    # --- SamPredictor API
+    def set_image(self, image_rgb: np.ndarray):
+        self.set_embedding(self.embed(image_rgb))
         return self.features
 
     def get_image_embedding(self):

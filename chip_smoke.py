@@ -214,6 +214,27 @@ Phases, in order; any failure raises and the exit code is non-zero:
         each 32-row shard equal bit for bit to the unsharded program on
         its rows, the whole batch within SHARD_TOL of the unsharded one,
         cc, reach and the median launched;
+     m. SAM-assisted annotation with cv2 and PIL refused: a Proposer
+        (4a's first member, effnet-b0 bf16, at create_testset's 512^2)
+        and the SAM ViT-B predictor from 4c's checkpoint, through
+        tools/annotate.py; a PrefetchWorker at create_testset's 1024^2
+        display over four 1280x720 JPEG fixtures (nvJPEG, the native
+        letterbox, the proposal, SamPredictor.embed on its thread) and a
+        scripted session on each item once two items wait in the queue
+        (r, clicks, a negative click, a box, brush strokes with a hole,
+        f, m, a click, a save at 720x1280 and at 512^2): every prompt's
+        mask equal to set_image + predict on its image alone, the PNGs
+        decoding to the session's mask, flash_fwd launched 4 times an
+        item and cc once a hole fill (and the kernels in CUDA graphs of
+        one call), fill_holes, smooth_mask and gaussian_blur_u8 on the
+        card equal to their CPU lanes bit for bit at 1024^2, and the
+        arrival-counter rows in use unchanged; each item's read,
+        letterbox, proposer and embed times, the consumer's wait, a
+        prompt's decode, postprocess and predict, smooth_mask and
+        fill_holes at 1024^2; then augment_batch's pipeline with
+        per_sample_warp at bs6 512^2 on the card against the CPU on the
+        same draws (99.9 % of values within 1e-2/255, masks equal on
+        99.9 %), the rows' angles distinct;
   5. timing with CUDA events: the pseudo-label program per bs64 batch;
      CC on the path's masks, cart-like blobs and the mixed masks, and
      reach on the path's Canny maps, beside their bounds, with the CUDA
@@ -288,8 +309,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
      device-resident batch of 4h's JPEG frames), and post_clean on one
      1536^2 mask: its wall, and its device time split into the CC
      kernel, the component statistics and the morphology.
-Near the end, one line each repeats 4k's and 4l's numbers and one gives
-every phase's wall. The line before the last holds the kernels' JSON
+Near the end, one line each repeats 4k's, 4l's and 4m's numbers and one
+gives every phase's wall. The line before the last holds the kernels' JSON
 record, the one before it the card's name and power limit, and the last
 line
 {"ok": true, "device": {...}}.
@@ -501,6 +522,10 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()
     return out[0].strip()
+
+
+def fmt_list(xs) -> str:
+    return "[" + ", ".join(f"{x:.2f}" for x in xs) + "]"
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -4922,6 +4947,310 @@ def phase_shard(ckpts, frames: np.ndarray, dev, card: str) -> dict:
     return {"launches": launches, "perr": perr, "serr": serr}
 
 
+
+# phase 4m: the annotation path and the per-sample warp
+ANNOTATE_JPEGS = ("frame_0", "frame_1", "frame_2", "frame_4")  # 1280x720
+ANNOTATE_DISPLAY = 1024      # create_testset's --img_size
+ANNOTATE_PROPOSER = 512      # its proposer's (create_testset.py:35-41)
+ANNOTATE_SAVE = 512          # create_hard_masks' --save_size
+ANNOTATE_WAIT_S = 30.0       # the longest a session waits for the worker
+ANNOTATE_REPS = 20
+BLUR_SIGMA = 2.5             # smooth_mask's sigma at k = 5
+# the per-sample warp, card against CPU on the same draws: |d| of the
+# normalised image (x / 255 at train_512 without ImageNet norm) within
+# 1e-2 / 255 on WARP_SHARE of the values, masks equal on WARP_SHARE (a
+# coordinate on a pixel edge may round across it on one device)
+WARP_TOL, WARP_SHARE = 1e-2 / 255, 0.999
+
+
+class RecordingSam:
+    """The port's predictor as a session drives it, recording each
+    prompt, the item it was made for, its mask and predict's host ms."""
+
+    def __init__(self, pred):
+        self.pred, self.item, self.calls = pred, None, []
+
+    def embed(self, img):
+        return self.pred.embed(img)
+
+    def set_embedding(self, e):
+        self.pred.set_embedding(e)
+
+    def predict(self, **kw):
+        t0 = time.perf_counter()
+        out = self.pred.predict(**kw)
+        self.calls.append((self.item, kw, out[0].copy(),
+                           (time.perf_counter() - t0) * 1e3))
+        return out
+
+
+def annotate_session(A, item, sam, out: Path) -> tuple:
+    """create_testset's edits on one item: r (the random-weight
+    proposal covers the frame), clicks, a negative click, a box, brush
+    strokes with a hole between them, f, m, a click with smoothing off,
+    then a save at the original size and at ANNOTATE_SAVE^2. Returns the
+    session and the host ms of its first prompt (decode, postprocess,
+    smooth)."""
+    n = ANNOTATE_DISPLAY
+    s = A.AnnotationSession(item.image_rgb, item.proposal, sam,
+                            embedding=item.sam_features, device="cuda")
+    if item.proposal.shape != (ANNOTATE_PROPOSER,) * 2 or \
+            item.proposal.dtype != np.uint8:
+        raise AssertionError(f"4m: proposal {item.proposal.shape} "
+                             f"{item.proposal.dtype}")
+    s.reset()
+    t0 = time.perf_counter()
+    s.apply_points([(n // 2, n // 2), (n // 2 + 28, n // 2 - 12)], [1, 1])
+    first_ms = (time.perf_counter() - t0) * 1e3
+    s.apply_points([(n // 5, 4 * n // 5)], [0])
+    s.apply_box((3 * n // 10, n // 3, 7 * n // 10, 3 * n // 4))
+    ring = [(int(n // 8 + 40 * np.cos(a)), int(n // 8 + 40 * np.sin(a)))
+            for a in np.linspace(0, 2 * np.pi, 90)]
+    s.brush(ring, 1, 6)
+    s.brush([(n - 3, n // 2), (n - 1, n // 2 + 5)], 1, 6)
+    s.fill_holes()
+    s.toggle_smoothing()
+    s.apply_points([(3 * n // 5, 3 * n // 5)], [1])
+    stem = item.path.stem
+    s.save(out / "orig" / f"{stem}.png", orig_hw=item.orig_hw)
+    s.save(out / "fixed" / f"{stem}.png", size=ANNOTATE_SAVE)
+    return s, first_ms
+
+
+def phase_annotate(tmp: Path, member_pth: Path, sam_pth: Path,
+                   card: str) -> dict:
+    """Phase 4m (a): the annotation path on the card, cv2 and PIL refused
+    by the caller: a Proposer (effnet-b0, bf16) and the SAM ViT-B
+    predictor, a PrefetchWorker over 1280x720 JPEG fixtures at
+    create_testset's display size, and a scripted session on each item
+    (annotate_session). Each session starts once the worker has two items
+    queued (a user edits for seconds), so the predictor's thread has
+    embedded later images before every prompt. Fails unless each prompt's
+    mask equals set_image + predict on its image alone, the saved PNGs
+    decode to the session's mask, SAM's flash kernel ran 4 times an item
+    and CC once a hole fill (counts, and the kernels in CUDA graphs of
+    one call), fill_holes, smooth_mask and gaussian_blur_u8 on the card
+    equal their CPU lanes bit for bit, and the arrival-counter rows in
+    use are the same after the phase as before it."""
+    from cartseg_tpu_torch import geometry as G
+    from cartseg_tpu_torch.ops.cuda import build
+    from cartseg_tpu_torch.ops.cuda import channel_sums as cs
+    from cartseg_tpu_torch.ops.cuda import soft_dice as sdice
+    from cartseg_tpu_torch.ops.filters import gaussian_blur_u8
+    from cartseg_tpu_torch.tools import annotate as A
+    from cartseg_tpu_torch.utils import image_io
+
+    rows_before = (len(cs._ARRIVALS.rows), len(sdice._ARRIVALS.rows))
+    paths = [FIXTURES / f"{n}.jpeg" for n in ANNOTATE_JPEGS]
+    out = tmp / "annotate"
+    t0 = time.perf_counter()
+    proposer = A.Proposer(member_pth, img_size=ANNOTATE_PROPOSER,
+                          device="cuda")
+    sam = RecordingSam(A.load_sam(sam_pth, device="cuda"))
+    load_s = time.perf_counter() - t0
+    build.reset_launch_counts()
+    worker = A.PrefetchWorker(paths, proposer, sam,
+                              img_size=ANNOTATE_DISPLAY, make_easy=False,
+                              device="cuda").start()
+    items, waits, sessions, first_ms = [], [], [], []
+    feed = iter(worker)
+    while True:
+        t0 = time.perf_counter()
+        item = next(feed, None)
+        if item is None:
+            break
+        waits.append((time.perf_counter() - t0) * 1e3)
+        deadline = time.perf_counter() + ANNOTATE_WAIT_S
+        while (not worker.queue.full() and worker._thread.is_alive()
+               and time.perf_counter() < deadline):
+            time.sleep(0.005)
+        sam.item = len(items)
+        s, ms = annotate_session(A, item, sam, out)
+        items.append(item)
+        sessions.append(s)
+        first_ms.append(ms)
+    worker.join()
+    torch.cuda.synchronize()
+    launches = {k: build.LAUNCHES[k] for k in ("flash_fwd", "cc")}
+    want = {"flash_fwd": SAM_GLOBAL_BLOCKS * len(paths), "cc": len(paths)}
+    log(f"  {len(items)} items through the PrefetchWorker (display "
+        f"{ANNOTATE_DISPLAY}^2, proposer {ANNOTATE_PROPOSER}^2, models "
+        f"loaded in {load_s:.1f} s), {len(sam.calls)} prompts; launches "
+        f"{launches} (want {want})")
+    if len(items) != len(paths) or launches != want:
+        raise AssertionError("4m: the annotation path's items or launches "
+                             "are off")
+
+    # each prompt against its image alone: set_image, then predict
+    pred, worst = sam.pred, 0.0
+    for k, item in enumerate(items):
+        pred.set_image(item.image_rgb)
+        worst = max(worst, float((pred.features - item.sam_features.features)
+                                 .abs().max()))
+        for kk, kw, mask, _ in sam.calls:
+            if kk == k and not np.array_equal(pred.predict(**kw)[0], mask):
+                raise AssertionError(f"4m: a prompt on item {k} decoded "
+                                     "against another embedding")
+    apart = float((items[0].sam_features.features
+                   - items[1].sam_features.features).abs().max())
+    log(f"  every prompt's mask equals set_image + predict on its own "
+        f"image; the worker's embedding against set_image's max |d| "
+        f"{worst:.3e}; two images' embeddings {apart:.3e} apart")
+    if apart == 0.0:
+        raise AssertionError("4m: the images' embeddings are equal")
+
+    # the saved PNGs decode to the session's mask
+    for item, s in zip(items, sessions):
+        oh, ow = item.orig_hw
+        got_o = image_io.read_gray(out / "orig" / f"{item.path.stem}.png")
+        got_f = image_io.read_gray(out / "fixed" / f"{item.path.stem}.png")
+        if not (np.array_equal(got_o, G.remove_letterbox(s.state.mask, ow,
+                                                          oh))
+                and np.array_equal(got_f, G.resize_nearest(
+                    s.state.mask, (ANNOTATE_SAVE, ANNOTATE_SAVE)))):
+            raise AssertionError(f"4m: {item.path.stem}'s saved masks "
+                                 "differ from the session's")
+    fg = [float((s.state.mask > 127).mean()) for s in sessions]
+    log(f"  saved masks ({oh}x{ow} and {ANNOTATE_SAVE}^2, the port's PNG "
+        f"codec) decode to the sessions' masks; fg share "
+        f"{min(fg):.3f}..{max(fg):.3f}")
+
+    # the card's image ops against their CPU lanes, bit for bit: the
+    # sessions' masks, blob masks with holes, a noise mask
+    from cartseg_tpu_torch.utils.synthetic import blob_masks
+
+    r = np.random.default_rng(SEED)
+    shape = (2, ANNOTATE_DISPLAY, ANNOTATE_DISPLAY)
+    holes = blob_masks(r, shape, 12) & ~blob_masks(r, shape, 30)
+    masks = [s.state.mask for s in sessions] + [
+        (h * 255).astype(np.uint8) for h in holes] + [
+        ((r.random((ANNOTATE_DISPLAY,) * 2) < 0.5) * 255).astype(np.uint8)]
+    noise = r.integers(0, 256, (ANNOTATE_DISPLAY,) * 2).astype(np.uint8)
+    checks = 0
+    for m in masks:
+        cpu = torch.from_numpy(m)
+        gpu = cpu.cuda()
+        for name, fn in (("fill_holes", A.fill_holes),
+                         ("smooth_mask k5", A.smooth_mask),
+                         ("smooth_mask k9 x2",
+                          lambda t: A.smooth_mask(t, 9, 2)),
+                         ("gaussian_blur_u8",
+                          lambda t: gaussian_blur_u8(t, BLUR_SIGMA))):
+            if not torch.equal(fn(gpu).cpu(), fn(cpu)):
+                raise AssertionError(f"4m: {name} on the card differs from "
+                                     "the CPU lane")
+            checks += 1
+    cpu = torch.from_numpy(noise)
+    if not torch.equal(gaussian_blur_u8(cpu.cuda(), BLUR_SIGMA).cpu(),
+                       gaussian_blur_u8(cpu, BLUR_SIGMA)):
+        raise AssertionError("4m: gaussian_blur_u8 on uint8 noise differs")
+    log(f"  {checks + 1} card-against-CPU checks bit-equal at "
+        f"{ANNOTATE_DISPLAY}^2: fill_holes, smooth_mask (k 5; k 9, 2 "
+        f"iterations) and gaussian_blur_u8 (sigma {BLUR_SIGMA}) on the "
+        f"sessions' masks, 2 blob masks with holes and a noise mask, the "
+        f"blur on uint8 noise")
+
+    # the kernels in CUDA graphs of one call
+    m_dev = torch.from_numpy(masks[len(sessions)]).cuda()
+    cc_nodes = [n for kind, n in graph_nodes(lambda: A.fill_holes(m_dev))
+                if kind == "KERNEL" and "cc_" in n]
+    model = pred.model
+    with torch.inference_mode():
+        x_dev = model.preprocess(
+            torch.from_numpy(items[0].image_rgb).cuda()[None])
+
+    @torch.inference_mode()
+    def encode():
+        model.encode_image(x_dev)
+
+    encode()
+    fa_nodes = [n for kind, n in graph_nodes(encode)
+                if kind == "KERNEL" and F32_FWD_SYMBOL in n]
+    log(f"  CUDA graph of one fill_holes at {ANNOTATE_DISPLAY}^2: CC "
+        f"kernels {cc_nodes}; of one embedding: {len(fa_nodes)} x "
+        f"{F32_FWD_SYMBOL}")
+    if not any("cc_tiles" in n for n in cc_nodes) or \
+            len(fa_nodes) != SAM_GLOBAL_BLOCKS:
+        raise AssertionError("4m: the graphs miss the CC or flash kernels")
+
+    rows_after = (len(cs._ARRIVALS.rows), len(sdice._ARRIVALS.rows))
+    log(f"  arrival-counter rows in use (channel_sums, soft_dice): before "
+        f"{rows_before}, after {rows_after}")
+    if rows_after != rows_before:
+        raise AssertionError("4m: the prefetch thread took a counter row")
+
+    # timings
+    for k, item in enumerate(items):
+        t = item.timings
+        log(f"  item {k} ({item.path.name}) prepared in "
+            f"{sum(t.values()) * 1e3:.2f} ms: read (nvJPEG) "
+            f"{t['read'] * 1e3:.2f}, letterbox {t['letterbox'] * 1e3:.2f}, "
+            f"proposer {t['propose'] * 1e3:.2f}, SAM embed "
+            f"{t['embed'] * 1e3:.2f}; the consumer waited {waits[k]:.2f} ms "
+            f"for it; its first prompt {first_ms[k]:.2f} ms [{card}]")
+    kw = sam.calls[0][1]
+    pred.set_embedding(items[0].sam_features)
+    coords, labels = pred._prompt_tokens(kw.get("point_coords"),
+                                         kw.get("point_labels"),
+                                         kw.get("box"))
+    c_dev = torch.from_numpy(coords)[None].cuda()
+    l_dev = torch.from_numpy(labels)[None].cuda()
+    with torch.inference_mode():
+        low = model.decode(pred.features, c_dev, l_dev)[0]
+        dec = cuda_ms(lambda: model.decode(pred.features, c_dev, l_dev),
+                      ANNOTATE_REPS)
+        post = cuda_ms(lambda: pred._postprocess(low), ANNOTATE_REPS)
+    predict_ms = float(np.median([c[3] for c in sam.calls]))
+    smooth = cuda_ms(lambda: A.smooth_mask(m_dev), ANNOTATE_REPS)
+    fill = cuda_ms(lambda: A.fill_holes(m_dev), ANNOTATE_REPS)
+    log(f"  a prompt: decode {dec:.3f} ms, postprocess {post:.3f} ms (CUDA "
+        f"events), predict {predict_ms:.2f} ms (host, median of "
+        f"{len(sam.calls)}); smooth_mask {smooth:.3f} ms, fill_holes "
+        f"{fill:.3f} ms at {ANNOTATE_DISPLAY}^2 (CUDA events) [{card}]")
+    prep = [float(np.median([i.timings[k] * 1e3 for i in items]))
+            for k in ("read", "letterbox", "propose", "embed")]
+    return {"launches": launches, "waits": waits, "first_ms": first_ms,
+            "predict_ms": predict_ms, "smooth_ms": smooth, "fill_ms": fill,
+            "prep": prep, "decode_ms": dec, "post_ms": post}
+
+
+def phase_per_sample_warp(dev, card: str) -> dict:
+    """Phase 4m (b): augment_batch's pipeline with per_sample_warp at
+    train_512 (bs6, 512^2) on the card against the CPU lane on the same
+    draws. chip_smoke holds no warp to the CPU otherwise; this one's
+    gather differs from the shared warp's (one index per pixel of the
+    flattened batch instead of one per pixel of the plane), and a fault
+    in its index arithmetic or its gather on the card would show only
+    there. Its rows' parameters must differ."""
+    import dataclasses
+
+    from cartseg_tpu_torch.data import augment as AUG
+
+    cfg = dataclasses.replace(AUG.AugmentConfig.train_512(),
+                              per_sample_warp=True)
+    imgs, masks = bce_batch(S, TRAIN_BS, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    U, u, noise = AUG.draw_augment(gen, TRAIN_BS, S, S, cfg, dev)
+    angle = AUG.draw_warp_params(u, cfg, S, S)[0]
+    gi, gm = AUG.apply_augment(imgs, masks, cfg, U, u, noise)
+    ci, cm = AUG.apply_augment(imgs.cpu(), masks.cpu(), cfg, U.cpu(),
+                               u.cpu(), noise.cpu())
+    d = (gi.cpu() - ci).abs()
+    share = float((d <= WARP_TOL).float().mean())
+    mshare = float((gm.cpu() == cm).float().mean())
+    ms = cuda_ms(lambda: AUG.augment_batch(gen, imgs, masks, cfg),
+                 ANNOTATE_REPS)
+    log(f"  per-sample warp, train_512 bs{TRAIN_BS} {S}^2: row angles "
+        f"{[round(float(a), 2) for a in angle.cpu()]}; card against CPU "
+        f"on the same draws: max |d| {float(d.max()):.3e}, {share:.6f} of "
+        f"the values within {WARP_TOL:.2e} (limit share {WARP_SHARE}), "
+        f"masks equal on {mshare:.6f}; augment_batch {ms:.3f} ms (CUDA "
+        f"events) [{card}]")
+    if (len(set(angle.cpu().tolist())) < 2 or share < WARP_SHARE
+            or mshare < WARP_SHARE):
+        raise AssertionError("4m: the per-sample warp is off")
+    return {"max": float(d.max()), "ms": ms}
+
 def main() -> int:
     from cartseg_tpu_torch.device import require_cuda
 
@@ -5084,6 +5413,13 @@ def main() -> int:
         del ddp_ref
         shard = phase_shard(ckpts, frames, dev, card)
         phase_done("4l")
+        log("phase 4m: SAM-assisted annotation on the card, cv2 and PIL "
+            "refused; the per-sample warp")
+        with refuse_modules("cv2", "PIL"):
+            annotate = phase_annotate(tmp, ckpts[0],
+                                      tmp / "sam_vit_b_seed0.pth", card)
+            warp = phase_per_sample_warp(dev, card)
+        phase_done("4m")
 
         log("phase 5: timing")
         timing = phase_timing(ckpts, frames, dev, card)
@@ -5154,6 +5490,16 @@ def main() -> int:
         for lane in BN_LANES) + f"; NCCL rank {ddp['nccl']['steps']} "
         f"steps; sharded program launches {shard['launches']}, probs "
         f"{shard['perr']:.3e}, stats {shard['serr']:.3e} [{card}]")
+    log(f"4m annotation: consumer waits {fmt_list(annotate['waits'])} ms, "
+        f"first prompts {fmt_list(annotate['first_ms'])} ms, predict "
+        f"{annotate['predict_ms']:.2f} ms, smooth_mask "
+        f"{annotate['smooth_ms']:.3f} ms, fill_holes "
+        f"{annotate['fill_ms']:.3f} ms at {ANNOTATE_DISPLAY}^2; launches "
+        f"{annotate['launches']}; an item's read / letterbox / proposer "
+        f"/ embed ms (median) {fmt_list(annotate['prep'])}; decode "
+        f"{annotate['decode_ms']:.3f}, postprocess "
+        f"{annotate['post_ms']:.3f} ms; per-sample warp max |d| "
+        f"{warp['max']:.3e} [{card}]")
     log("phase walls (s): " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in walls.items())
         + f"; total {sum(walls.values()):.1f}")

@@ -16,6 +16,8 @@ Tolerances (images on the 0..255 scale before normalisation, float32):
     one) and masks equal on 99.9 %.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -213,3 +215,128 @@ def test_per_sample_gates_of_augment_batch():
     assert abs(rate - 0.5) < 4 * np.sqrt(0.25 / (64 * 40))
     # consecutive batches draw new gates
     assert not all(np.array_equal(flips[0], f) for f in flips[1:])
+
+
+# ------------------------------------------------- per-sample warp
+
+PER_SAMPLE = dict(rotate_p=1.0, scale_p=1.0, shift_scale_rotate_p=1.0,
+                  per_sample_warp=True)
+
+
+def _jax_draws_per_sample(key):
+    """augment_batch's draws with per_sample_warp: U [17,B], u [9,B]."""
+    kw, kps, _ = jax.random.split(key, 3)
+    return (np.array(jax.random.uniform(kps, (17, B))),
+            np.array(jax.random.uniform(kw, (9, B))))
+
+
+@pytest.mark.parametrize("seed", [1, 2, 5])
+def test_per_sample_warp_at_jax_draws(seed):
+    """JAX's own per-sample draws for a key (u now [9,B]) through the
+    port's apply_augment, against JAX's augment_batch with
+    per_sample_warp, at the shared warp's tolerance."""
+    cj, ct = _cfgs(**PER_SAMPLE)
+    img, m = _inputs()
+    key = jax.random.key(seed)
+    ji, jm = JA.augment_batch(key, jnp.asarray(img), jnp.asarray(m), cj)
+    U, u = _jax_draws_per_sample(key)
+    ti, tm = TA.apply_augment(torch.from_numpy(img), torch.from_numpy(m),
+                              ct, torch.from_numpy(U), torch.from_numpy(u),
+                              None)
+    ti, tm, ji, jm = ti.numpy(), tm.numpy(), np.asarray(ji), np.asarray(jm)
+    assert (np.abs(ti - ji) <= 1e-2).mean() >= 0.999, np.abs(ti - ji).max()
+    assert (tm == jm).mean() >= 0.999
+    # the rows were warped differently
+    angles = TA.draw_warp_params(torch.from_numpy(u), ct, H, W)[0].numpy()
+    assert len(np.unique(angles)) == B
+
+
+def test_per_sample_affine_warp_direct():
+    """The warp alone at fixed [B] parameters against JAX's
+    `_per_sample_affine_warp` (as the shared warp's direct test), and
+    each row equal to the shared warp of that row alone."""
+    img, m = _inputs(seed=4)
+    params = [np.array(v, np.float32) for v in (
+        (30.0, -12.0, 5.0, 0.0), (0.8, 1.1, 0.95, 1.0),
+        (3.0, 0.0, -1.5, 2.0), (-2.0, 1.0, 0.0, 4.0))]
+    ji, jm = JA._per_sample_affine_warp(jnp.asarray(img), jnp.asarray(m),
+                                        *[jnp.asarray(p) for p in params])
+    tp = [torch.from_numpy(p) for p in params]
+    ti, tm = TA._per_sample_affine_warp(torch.from_numpy(img),
+                                        torch.from_numpy(m), *tp)
+    assert (np.abs(ti.numpy() - np.asarray(ji)) <= 1e-2).mean() >= 0.999
+    assert (tm.numpy() == np.asarray(jm)).mean() >= 0.999
+    assert ti.dtype == torch.float32 and tm.shape == (B, H, W, 1)
+    for b in range(B):
+        si, sm = TA._shared_affine_warp(torch.from_numpy(img[b:b + 1]),
+                                        torch.from_numpy(m[b:b + 1]),
+                                        *[p[b] for p in tp])
+        assert torch.equal(ti[b:b + 1], si) and torch.equal(tm[b:b + 1], sm)
+
+
+def _port_per_sample_draws(cfg, batch, n, seed=0):
+    """n batches of the port's per-sample warp parameters, as
+    augment_batch draws them (draw_augment's u [9,B])."""
+    g = torch.Generator().manual_seed(seed)
+    out = [[] for _ in range(4)]
+    for _ in range(n):
+        _, u, _ = TA.draw_augment(g, batch, 224, 224, cfg, "cpu")
+        assert u.shape == (9, batch)
+        for acc, t in zip(out, TA.draw_warp_params(u, cfg, 224, 224)):
+            acc.append(t.numpy())
+    return [np.stack(v) for v in out]
+
+
+def test_per_sample_marginals_and_independence():
+    """tests/test_augment_dist.py's checks on the port's per-sample
+    draws: the Rotate / zoom / ShiftScaleRotate mixtures at their p and
+    limits, distinct values within a batch, lag-1 autocorrelation ~ 0."""
+    cfg = dataclasses.replace(TA.AugmentConfig.train_512(),
+                              per_sample_warp=True)
+    a, s, _, _ = _port_per_sample_draws(cfg, 8, 1000)
+    _check_mixture(a.ravel(), cfg.rotate_p, -20.0, 20.0, 0.0)
+    _check_mixture(s.ravel(), cfg.scale_p, 0.88, 1.12, 1.0)
+    cfg224 = dataclasses.replace(TA.AugmentConfig.train_224(),
+                                 per_sample_warp=True)
+    a, s, ty, tx = _port_per_sample_draws(cfg224, 8, 250, seed=2)
+    _check_mixture(a.ravel(), 0.2, -5.0, 5.0, 0.0)
+    _check_mixture(s.ravel(), 0.2, 0.88, 1.12, 1.0)
+    _check_mixture(ty.ravel(), 0.2, -0.02 * 224, 0.02 * 224, 0.0)
+    _check_mixture(tx.ravel(), 0.2, -0.02 * 224, 0.02 * 224, 0.0)
+    a = _port_per_sample_draws(cfg, 64, 1, seed=3)[0][0]
+    applied = a[a != 0.0]
+    assert len(np.unique(applied)) == len(applied) > 10
+    r = np.corrcoef(applied[:-1], applied[1:])[0, 1]
+    assert abs(r) < 0.35
+
+
+def test_per_sample_warp_differs_across_batch():
+    """tests/test_data.py's check: identical inputs come out different
+    with per_sample_warp and identical without it."""
+    img = torch.zeros((4, 32, 32, 3), dtype=torch.uint8)
+    img[:, 8:24, 8:24] = 255
+    m = torch.zeros((4, 32, 32, 1))
+    m[:, 8:24, 8:24] = 1.0
+    off = {**ALL_OFF, "rotate_p": 1.0, "rotate_limit": 30.0}
+    for per_sample in (True, False):
+        cfg = TA.AugmentConfig(**off, per_sample_warp=per_sample)
+        _, om = TA.augment_batch(torch.Generator().manual_seed(5), img, m,
+                                 cfg)
+        om = om.numpy()
+        assert set(np.unique(om)) <= {0.0, 1.0}
+        same = all(np.array_equal(om[0], om[b]) for b in range(1, 4))
+        assert same != per_sample
+
+
+def test_per_sample_warp_ranks_take_their_rows():
+    """Under data parallelism each rank draws at the global batch and
+    keeps its rows: two ranks' halves equal the one-process batch."""
+    cfg = TA.AugmentConfig(**{**ALL_OFF, **PER_SAMPLE, "hflip_p": 0.5,
+                              "noise_p": 0.5})
+    img, m = (torch.from_numpy(a) for a in _inputs(seed=8))
+    whole = TA.augment_batch(torch.Generator().manual_seed(9), img, m, cfg)
+    for rows in (slice(0, 2), slice(2, 4)):
+        part = TA.augment_batch(torch.Generator().manual_seed(9), img[rows],
+                                m[rows], cfg, rows=rows, batch=B)
+        assert torch.equal(part[0], whole[0][rows])
+        assert torch.equal(part[1], whole[1][rows])
