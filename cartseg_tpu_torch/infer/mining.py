@@ -42,6 +42,8 @@ from cartseg_tpu_torch.ops.connected_components import count_components
 from cartseg_tpu_torch.ops.edges import mask_boundary
 from cartseg_tpu_torch.ops.morphology import fill_holes_from_border
 from cartseg_tpu_torch.parallel.mesh import shard_inference_program
+from cartseg_tpu_torch.postprocess.overlay import (apply_colormap_jet,
+                                                   draw_external_contours)
 from cartseg_tpu_torch.utils import image_io
 
 
@@ -126,11 +128,6 @@ def mine_hard_cases(members: Sequence[EnsembleMember], cfg: MiningConfig,
     out_dir/hard_candidates.csv and return its rows (dicts), best
     first. Frames are read as the pseudo-labeller reads them
     (`load_frame`: nvJPEG on a card, the native letterbox)."""
-    if cfg.save_previews and not image_io.have_cv2():
-        raise RuntimeError(
-            "mining previews (save_previews) draw cv2's colormap and "
-            "contours and need OpenCV (cv2), which is not installed; "
-            "leave save_previews off")
     device = torch.device(device)
     root = Path(cfg.images_root)
     out_dir = Path(cfg.out_dir)
@@ -199,9 +196,8 @@ def _save_previews(rows: list, fwd, cfg: MiningConfig, out_dir: Path,
                    device, log) -> None:
     """Triptych previews of the top-ranked candidates
     (mine_hard_cases.py:215-252): image | prob heatmap | mask contours,
-    drawn with cv2's colormap and contours."""
-    import cv2
-
+    drawn as cv2's JET colormap and contours without OpenCV
+    (postprocess/overlay.py)."""
     pdir = out_dir / "previews"
     pdir.mkdir(parents=True, exist_ok=True)
     for rank, row in enumerate(rows):
@@ -211,16 +207,10 @@ def _save_previews(rows: list, fwd, cfg: MiningConfig, out_dir: Path,
             continue
         probs, probs_flip = fwd(torch.from_numpy(img[None]).to(device))
         p = ((probs + probs_flip) / 2.0)[0].cpu().numpy()
-        heat = cv2.applyColorMap((p * 255).astype(np.uint8),
-                                 cv2.COLORMAP_JET)
-        m = (p > cfg.threshold).astype(np.uint8)
-        overlay = img.copy()
-        cnts, _ = cv2.findContours(m, cv2.RETR_EXTERNAL,
-                                   cv2.CHAIN_APPROX_SIMPLE)
-        cv2.drawContours(overlay, cnts, -1, (255, 0, 0), 2)
-        panel = np.concatenate(
-            [cv2.cvtColor(img, cv2.COLOR_RGB2BGR), heat,
-             cv2.cvtColor(overlay, cv2.COLOR_RGB2BGR)], axis=1)
-        cv2.imwrite(str(pdir / f"{rank:04d}_{Path(row['path']).stem}.png"),
-                    panel)
+        heat = apply_colormap_jet((p * 255).astype(np.uint8))
+        overlay = draw_external_contours(img, p > cfg.threshold,
+                                         (255, 0, 0), 2)
+        image_io.write_png(
+            pdir / f"{rank:04d}_{Path(row['path']).stem}.png",
+            np.concatenate([img, heat, overlay], axis=1))
     log(f"Saved {len(rows)} previews to {pdir}")

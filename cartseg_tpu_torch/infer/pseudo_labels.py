@@ -32,6 +32,7 @@ from cartseg_tpu_torch import geometry as G
 from cartseg_tpu_torch.infer.engine import (EnsembleMember,
                                             pseudo_label_program)
 from cartseg_tpu_torch.parallel.mesh import shard_inference_program
+from cartseg_tpu_torch.postprocess.overlay import draw_external_contours
 from cartseg_tpu_torch.utils import image_io
 
 IMG_EXTS = {".jpg", ".jpeg", ".png", ".bmp", ".tif", ".tiff"}
@@ -97,14 +98,9 @@ class PseudoLabelConfig:
 
 
 def _overlay(rgb_u8: np.ndarray, pred01: np.ndarray) -> np.ndarray:
-    """Red boundary overlay (create_pseudo_labels.py:251-253)."""
-    import cv2
-
-    out = rgb_u8.copy()
-    cnts, _ = cv2.findContours(pred01.astype(np.uint8),
-                               cv2.RETR_EXTERNAL, cv2.CHAIN_APPROX_SIMPLE)
-    cv2.drawContours(out, cnts, -1, (255, 0, 0), 2)
-    return out
+    """Red boundary overlay (create_pseudo_labels.py:251-253): the outer
+    contours drawn as cv2 draws them, without OpenCV."""
+    return draw_external_contours(rgb_u8, pred01, (255, 0, 0), 2)
 
 
 def load_frame(path, size: int, side_padding_ratio: float,
@@ -135,10 +131,6 @@ def generate_pseudo_labels(members: Sequence[EnsembleMember],
     out_dir.mkdir(parents=True, exist_ok=True)
     uncertain_dir.mkdir(parents=True, exist_ok=True)
     overlay_dir = Path(cfg.overlay_dir) if cfg.overlay_dir else None
-    if overlay_dir and cfg.save_overlays and not image_io.have_cv2():
-        raise RuntimeError(
-            "overlays (--overlay_dir) draw cv2 contours and need OpenCV "
-            "(cv2), which is not installed; leave --overlay_dir unset")
     if overlay_dir:
         overlay_dir.mkdir(parents=True, exist_ok=True)
 

@@ -1,9 +1,12 @@
 """Native host runtime (counterpart of cartseg_tpu/native/): the exact
-EDT and the fused letterbox + bilinear resize of the data loader, C++
-called through ctypes.
+EDT and the fused letterbox + bilinear resize of the data loader, and
+the outer contours and thick polylines of the overlays, C++ called
+through ctypes.
 
 `edt.cpp` and `preproc.cpp` are this package's own copies of the JAX
-package's sources, with the same C ABI. They are compiled at first use
+package's sources, with the same C ABI; `contours.cpp` is the port's
+own (cv2.findContours(RETR_EXTERNAL, CHAIN_APPROX_SIMPLE) and
+cv2.drawContours, which the JAX package calls). They are compiled at first use
 with g++ and the JAX package's flags (-O3 -march=native -fopenmp), so
 the two libraries built on one machine give the same bytes, into
 `native/_build/` (listed in .gitignore) under a name that carries a
@@ -24,7 +27,7 @@ from pathlib import Path
 import numpy as np
 
 _HERE = Path(__file__).resolve().parent
-SOURCES = (_HERE / "edt.cpp", _HERE / "preproc.cpp")
+SOURCES = (_HERE / "edt.cpp", _HERE / "preproc.cpp", _HERE / "contours.cpp")
 BUILD_DIR = _HERE / "_build"
 FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-fopenmp")
 
@@ -88,6 +91,16 @@ def get_lib() -> ctypes.CDLL:
     lib.resize_nearest_u8.argtypes = [
         u8p, ctypes.c_int, ctypes.c_int, u8p, ctypes.c_int, ctypes.c_int]
     lib.resize_nearest_u8.restype = None
+    i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    i64 = ctypes.c_int64
+    lib.cartseg_find_external_contours.argtypes = [
+        u8p, ctypes.c_int, ctypes.c_int, i32p, i64, i32p, i64,
+        ctypes.POINTER(i64)]
+    lib.cartseg_find_external_contours.restype = i64
+    lib.cartseg_draw_contours.argtypes = [
+        u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int, i32p, i32p, i64, u8p,
+        ctypes.c_int]
+    lib.cartseg_draw_contours.restype = None
     return lib
 
 
@@ -134,3 +147,49 @@ def resize_nearest(mask: np.ndarray, out_hw) -> np.ndarray:
     out = np.empty((dh, dw), np.uint8)
     lib.resize_nearest_u8(mask, sh, sw, out, dh, dw)
     return out
+
+
+def find_external_contours(mask: np.ndarray) -> list:
+    """cv2.findContours(mask, RETR_EXTERNAL, CHAIN_APPROX_SIMPLE)[0] of an
+    HxW mask (nonzero is foreground): a list of int32 [N, 2] (x, y)
+    arrays, the last found by the raster scan first, as cv2 lists them."""
+    lib = get_lib()
+    mask = np.ascontiguousarray(mask, np.uint8)
+    h, w = mask.shape
+    pts_cap, lens_cap = 4 * (h + w) + 64, 64
+    while True:
+        pts = np.empty((pts_cap, 2), np.int32)
+        lens = np.empty(lens_cap, np.int32)
+        n_pts = ctypes.c_int64(0)
+        n = lib.cartseg_find_external_contours(mask, h, w, pts, pts_cap,
+                                               lens, lens_cap,
+                                               ctypes.byref(n_pts))
+        if n <= lens_cap and n_pts.value <= pts_cap:
+            break
+        pts_cap, lens_cap = max(pts_cap, n_pts.value), max(lens_cap, n)
+    if n == 0:
+        return []
+    return np.split(pts[:n_pts.value], np.cumsum(lens[:n])[:-1])[::-1]
+
+
+def draw_contours(image: np.ndarray, contours, colour,
+                  thickness: int) -> None:
+    """cv2.drawContours(image, contours, -1, colour, thickness) in place,
+    for an HxWxC uint8 image and thickness > 1 (LINE_8)."""
+    if thickness < 2:
+        raise ValueError(f"thickness must be > 1, got {thickness}")
+    if image.dtype != np.uint8 or image.ndim != 3 or \
+            not image.flags.c_contiguous:
+        raise ValueError("draw_contours takes a C-contiguous HxWxC uint8 "
+                         f"image, got {image.dtype} {image.shape}")
+    h, w, cn = image.shape
+    colour = np.asarray(colour, np.uint8).reshape(-1)
+    if colour.size != cn:
+        raise ValueError(f"colour has {colour.size} values for {cn} channels")
+    if not len(contours):
+        return
+    lens = np.array([len(c) for c in contours], np.int32)
+    pts = np.ascontiguousarray(np.concatenate(contours).reshape(-1, 2),
+                               np.int32)
+    get_lib().cartseg_draw_contours(image, h, w, cn, pts, lens, len(lens),
+                                    colour, int(thickness))

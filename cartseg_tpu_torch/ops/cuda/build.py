@@ -49,7 +49,7 @@ LAUNCHES = {"cc": 0, "reach": 0, "median": 0, "edt": 0, "lsr_fwd": 0,
             "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "channel_sums": 0,
             "focal": 0, "soft_dice": 0, "one_hot": 0, "mish_fwd": 0,
             "mish_bwd": 0, "swish_fwd": 0, "swish_bwd": 0, "hswish_fwd": 0,
-            "hswish_bwd": 0}
+            "hswish_bwd": 0, "bilateral": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -94,6 +94,8 @@ _SIGNATURES = {
     "cartseg_one_hot": (_P, _P, _L, _I, _F, _F, _L, _I, _I, _P),
     # (kind, x, g or null, out, n, vec, stream)
     "cartseg_activation": (_I, _P, _P, _P, _L, _I, _P),
+    # (src, dst, H, W, colour, offsets, space, ntaps, radius, stream)
+    "cartseg_bilateral_u8": (_P, _P, _I, _I, _P, _P, _P, _I, _I, _P),
 }
 
 

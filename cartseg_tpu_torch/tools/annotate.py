@@ -14,12 +14,13 @@ create_more_specific_data.py) on the card.
     close, open, Gaussian blur and threshold, bit for bit without
     OpenCV: ops/morphology.py and ops/filters.py), hole filling (the CC
     kernel on the card), the brush, saving, skip markers and
-    skip-existing resume.
+    skip-existing resume;
+  * the `seg_friendly` preprocessing on the worker's device (the
+    bilateral kernel on the card, 8-bit Lab and CLAHE in torch).
 
-Only two parts need OpenCV and import it where they run: `seg_friendly`
-(bilateral filter, LAB, CLAHE) and `run_ui`'s window (highgui and a
-display). Each raises with its reason without it; nothing else does, so
-the session, the worker and the saving run on a machine without cv2.
+Only `run_ui`'s window needs OpenCV (highgui and a display) and imports
+it where it runs, raising with its reason without it; the session, the
+worker, the preprocessing and the saving run on a machine without cv2.
 
 Deviations from the JAX module, by design:
   * the prefetch thread embeds each image with `SamPredictor.embed`,
@@ -53,7 +54,10 @@ import torch
 from cartseg_tpu_torch import geometry as G
 from cartseg_tpu_torch.device import resolve_device
 from cartseg_tpu_torch.models.sam import SamConfig, load_sam_checkpoint
-from cartseg_tpu_torch.ops.filters import gaussian_blur_u8
+from cartseg_tpu_torch.ops.clahe import clahe_u8
+from cartseg_tpu_torch.ops.color import (add_weighted, bgr_to_lab_u8,
+                                         convert_scale_abs, lab_to_bgr_u8)
+from cartseg_tpu_torch.ops.filters import bilateral_u8, gaussian_blur_u8
 from cartseg_tpu_torch.ops.morphology import (dilate, erode,
                                               fill_holes_from_border)
 
@@ -71,21 +75,29 @@ def _cv2(what: str):
 
 # ------------------------------------------------------------ preproc
 
-def seg_friendly(img_bgr: np.ndarray) -> np.ndarray:
-    """Edge-preserving smooth + contrast boost + CLAHE + sharpen
-    (create_hard_masks.py:117-138), through cv2 as the JAX function."""
-    cv2 = _cv2("seg_friendly (bilateral filter, LAB, CLAHE)")
+def _blur_hwc(img: torch.Tensor, sigma: float) -> torch.Tensor:
+    return gaussian_blur_u8(img.permute(2, 0, 1), sigma).permute(1, 2, 0)
 
-    img = cv2.bilateralFilter(img_bgr, d=15, sigmaColor=100, sigmaSpace=15)
-    img = cv2.GaussianBlur(img, (0, 0), 1.5)
-    img = cv2.convertScaleAbs(img, alpha=1.3, beta=0)
-    lab = cv2.cvtColor(img, cv2.COLOR_BGR2LAB)
-    L, A, B = cv2.split(lab)
-    clahe = cv2.createCLAHE(clipLimit=4.0, tileGridSize=(4, 4))
-    L = clahe.apply(L)
-    bgr = cv2.cvtColor(cv2.merge([L, A, B]), cv2.COLOR_LAB2BGR)
-    sharp = cv2.GaussianBlur(bgr, (0, 0), 1.0)
-    return cv2.addWeighted(bgr, 1.5, sharp, -0.5, 0)
+
+def seg_friendly(img_bgr: np.ndarray, device="cpu") -> np.ndarray:
+    """Edge-preserving smooth + contrast boost + CLAHE + sharpen
+    (create_hard_masks.py:117-138) of an HxWx3 uint8 BGR image, on
+    `device`, without OpenCV: the JAX function's cv2 chain, stage by
+    stage, bilateral filter (ops/filters.py; the CUDA kernel on a card),
+    Gaussian blur, convertScaleAbs, 8-bit BGR -> Lab (ops/color.py),
+    CLAHE on L (ops/clahe.py), Lab -> BGR, Gaussian blur and
+    addWeighted. Every stage but the bilateral filter is bit-equal to
+    its cv2 call; that one rounds 0-2 values of a 1280x720 frame 1 off
+    cv2's (ops/filters.py)."""
+    x = torch.from_numpy(np.ascontiguousarray(img_bgr, np.uint8)).to(
+        resolve_device(device))
+    x = _blur_hwc(bilateral_u8(x, 15, 100.0, 15.0), 1.5)
+    lab = bgr_to_lab_u8(convert_scale_abs(x, 1.3))
+    lab = torch.stack([clahe_u8(lab[..., 0], 4.0, (4, 4)), lab[..., 1],
+                       lab[..., 2]], -1)
+    bgr = lab_to_bgr_u8(lab)
+    out = add_weighted(bgr, 1.5, _blur_hwc(bgr, 1.0), -0.5, 0.0)
+    return out.cpu().numpy()
 
 
 def smooth_mask(mask: torch.Tensor, k: int = 5, iters: int = 1,
@@ -396,7 +408,7 @@ class PrefetchWorker:
         t["read"] = t1 - t0
         if self.make_easy:
             rgb = np.ascontiguousarray(
-                seg_friendly(np.ascontiguousarray(rgb[..., ::-1]))[..., ::-1])
+                seg_friendly(rgb[..., ::-1], self.device)[..., ::-1])
             t["seg_friendly"] = time.perf_counter() - t1
             t1 = time.perf_counter()
         disp = G.letterbox_resize(rgb, self.img_size, self.side_padding_ratio)

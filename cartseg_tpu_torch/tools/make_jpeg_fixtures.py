@@ -19,7 +19,12 @@ cartseg_tpu_torch/tools/jpeg_fixtures/) it writes:
                         90 degrees clockwise, 720x1280);
   frame_3_gray.jpeg     frame 3 as a one-component (grayscale) JPEG;
   <jpeg stem>.cv2.png   cv2.imread(IMREAD_COLOR) of every JPEG, as RGB;
-  frame_0.cv2gray.png   cv2.imread(IMREAD_GRAYSCALE) of frame_0.jpeg.
+  frame_0.cv2gray.png   cv2.imread(IMREAD_GRAYSCALE) of frame_0.jpeg;
+  frame_0.seg_friendly.cv2.png  the annotation tool's seg_friendly of
+                        frame_0's cv2 decode through cv2 (`cv2_seg_friendly`,
+                        the JAX package's chain), as RGB: what the card's
+                        seg_friendly is held against (chip_smoke.py phase
+                        4m).
 """
 
 from __future__ import annotations
@@ -147,6 +152,24 @@ def _encode(rgb_or_gray: np.ndarray, *params) -> bytes:
     return buf.tobytes()
 
 
+def cv2_seg_friendly(img_bgr: np.ndarray) -> np.ndarray:
+    """The annotation tool's seg_friendly through cv2, the calls of
+    cartseg_tpu/tools/annotate.py:49-58: bilateral filter, Gaussian
+    blur, convertScaleAbs, CLAHE on Lab's L, Gaussian blur and
+    addWeighted."""
+    import cv2
+
+    img = cv2.bilateralFilter(img_bgr, d=15, sigmaColor=100, sigmaSpace=15)
+    img = cv2.GaussianBlur(img, (0, 0), 1.5)
+    img = cv2.convertScaleAbs(img, alpha=1.3, beta=0)
+    lab = cv2.cvtColor(img, cv2.COLOR_BGR2LAB)
+    L, A, B = cv2.split(lab)
+    L = cv2.createCLAHE(clipLimit=4.0, tileGridSize=(4, 4)).apply(L)
+    bgr = cv2.cvtColor(cv2.merge([L, A, B]), cv2.COLOR_LAB2BGR)
+    sharp = cv2.GaussianBlur(bgr, (0, 0), 1.0)
+    return cv2.addWeighted(bgr, 1.5, sharp, -0.5, 0)
+
+
 def _write_png(path: Path, img: np.ndarray) -> None:
     """PNG rows with the Up filter: as small as cv2's adaptive filters on
     these frames, and the port's PNG codec decodes them without a loop
@@ -187,6 +210,9 @@ def write_fixtures(out: Path = OUT) -> list:
                    cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB))
     gray = cv2.imread(str(out / "frame_0.jpeg"), cv2.IMREAD_GRAYSCALE)
     _write_png(out / "frame_0.cv2gray.png", gray)
+    bgr = cv2.imread(str(out / "frame_0.jpeg"), cv2.IMREAD_COLOR)
+    _write_png(out / "frame_0.seg_friendly.cv2.png",
+               cv2.cvtColor(cv2_seg_friendly(bgr), cv2.COLOR_BGR2RGB))
     return paths
 
 

@@ -8,7 +8,9 @@ x-to-skip markers, saves at 512^2 (:453-459).
       --candidates hard_candidates.csv --out_dir DIR --checkpoint model.pth \
       [--sam_checkpoint sam_vit_b.pth] [--limit 200] [--device cuda]
 
-The window and seg_friendly need OpenCV (highgui and a display).
+The window needs OpenCV (highgui and a display); the seg_friendly
+preprocessing runs on the device without it. The process keeps float32
+math in full float32 (`device.set_fp32_policy`).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 import argparse
 from pathlib import Path
 
+from cartseg_tpu_torch.device import set_fp32_policy
 from cartseg_tpu_torch.tools.annotate import (Proposer,
                                               load_hard_candidates, run_ui)
 
@@ -33,6 +36,8 @@ def main(argv=None):
     ap.add_argument("--limit", type=int, default=None)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    # SAM and the proposer in full float32, as the checks hold them
+    set_fp32_policy()
 
     paths = load_hard_candidates(Path(args.candidates), args.limit)
     proposer = (Proposer(Path(args.checkpoint), args.encoder,

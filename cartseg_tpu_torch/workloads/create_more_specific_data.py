@@ -8,7 +8,9 @@ output dir (:161-172), saves at 224^2 (:417-423).
       [--checkpoint model.pth] [--sam_checkpoint sam_vit_b.pth] \
       [--device cuda]
 
-The window and seg_friendly need OpenCV (highgui and a display).
+The window needs OpenCV (highgui and a display); the seg_friendly
+preprocessing runs on the device without it. The process keeps float32
+math in full float32 (`device.set_fp32_policy`).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 import argparse
 from pathlib import Path
 
+from cartseg_tpu_torch.device import set_fp32_policy
 from cartseg_tpu_torch.tools.annotate import (IMG_EXTS, Proposer,
                                               pending_paths, run_ui)
 
@@ -33,6 +36,8 @@ def main(argv=None):
     ap.add_argument("--save_size", type=int, default=224)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    # SAM and the proposer in full float32, as the checks hold them
+    set_fp32_policy()
 
     paths = sorted(p for p in Path(args.images_root).rglob("*")
                    if p.suffix.lower() in IMG_EXTS)

@@ -8,10 +8,12 @@ resolution (:391-396).
       --images_root DIR --out_dir DIR --checkpoint model.pth \
       [--sam_checkpoint sam_vit_b.pth] [--no_seg_friendly] [--device cuda]
 
-The window needs OpenCV's highgui and a display, and the seg_friendly
-preprocessing (on unless --no_seg_friendly) needs OpenCV; SAM is
-optional (brush-only editing without it). As in the JAX workload, the
-proposer runs at 512^2 while the display is at --img_size (1024).
+The window needs OpenCV's highgui and a display; the seg_friendly
+preprocessing (on unless --no_seg_friendly) runs on the device without
+it, and the process keeps float32 math in full float32
+(`device.set_fp32_policy`). SAM is optional (brush-only editing
+without it). As in the JAX workload, the proposer runs at 512^2 while
+the display is at --img_size (1024).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from __future__ import annotations
 import argparse
 from pathlib import Path
 
+from cartseg_tpu_torch.device import set_fp32_policy
 from cartseg_tpu_torch.tools.annotate import IMG_EXTS, Proposer, run_ui
 
 
@@ -34,6 +37,8 @@ def main(argv=None):
     ap.add_argument("--display_scale", type=float, default=1.0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    # SAM and the proposer in full float32, as the checks hold them
+    set_fp32_policy()
 
     paths = sorted(p for p in Path(args.images_root).rglob("*")
                    if p.suffix.lower() in IMG_EXTS)

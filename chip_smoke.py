@@ -375,6 +375,9 @@ KERNELS = {
        for kind, lines in (("mish", (77, 82)), ("swish", (90, 95)),
                            ("hswish", (101, 106)))
        for d, line in zip(("fwd", "bwd"), lines)},
+    # no TPU kernel: the JAX package's cv2.bilateralFilter on the host
+    "bilateral": ("cartseg_tpu_torch/ops/cuda/csrc/bilateral.cu",
+                  "cartseg_tpu/tools/annotate.py:49"),
 }
 PSEUDO_KERNELS = ("cc", "reach", "median")
 TRAIN_KERNELS = ("edt", "lsr_fwd", "lsr_bwd")
@@ -3627,8 +3630,9 @@ def phase_config_workloads(tmp: Path, ir: Path, mr: Path,
 def phase_pseudo_jpeg(tmp: Path, pth: Path) -> dict:
     """workloads/create_pseudo_labels on B camera-size JPEGs (the
     fixtures cycled over 2 sessions) at --batch_size B --img_size S,
-    with the pretrained run's model.pth as the three members: every
-    mask, prob file and CSV row; cc, reach and median launched."""
+    with the pretrained run's model.pth as the three members and
+    --overlay_dir: every mask, prob file and CSV row; cc, reach and
+    median launched; one overlay a frame (check_overlays)."""
     from cartseg_tpu_torch.ops.cuda import build
     from cartseg_tpu_torch.workloads import create_pseudo_labels as cli
 
@@ -3641,12 +3645,14 @@ def phase_pseudo_jpeg(tmp: Path, pth: Path) -> dict:
             (FIXTURES / names[i % len(names)]).read_bytes())
     members = ",".join([str(pth)] * 3)
     out_dir = tmp / "pseudo_jpeg"
+    overlays = tmp / "pseudo_jpeg_overlays"
     build.reset_launch_counts()
     t0 = time.perf_counter()
     result = cli.main(["--images_root", str(images), "--out_dir",
                        str(out_dir), "--checkpoints", members,
                        "--batch_size", str(B), "--img_size", str(S),
-                       "--max_per_bucket", "1000", "--device", "cuda"])
+                       "--max_per_bucket", "1000", "--overlay_dir",
+                       str(overlays), "--device", "cuda"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
@@ -3659,9 +3665,47 @@ def phase_pseudo_jpeg(tmp: Path, pth: Path) -> dict:
         f"{result['wall_s']:.3f} s, of it reading (nvJPEG) and letterboxing "
         f"{result['read_s']:.3f} s; launches {launches}")
     check_pseudo_outputs(images, out_dir, sorted(images.rglob("*.jpeg")))
+    check_overlays(images, out_dir, overlays)
     build.reset_launch_counts()
     return {"images": images, "out_dir": out_dir,
             "read_s": result["read_s"], "wall_s": result["wall_s"]}
+
+
+def check_overlays(images: Path, out_dir: Path, overlays: Path) -> None:
+    """One <stem>_overlay_512.png a frame (accepted or uncertain), each
+    the letterboxed frame with the outer contours of the frame's written
+    mask drawn in red at thickness 2 (postprocess/overlay.py, cv2's
+    drawing bit for bit on the CPU tests), red wherever the mask has
+    foreground and nowhere else."""
+    from cartseg_tpu_torch.infer.pseudo_labels import load_frame
+    from cartseg_tpu_torch.postprocess.overlay import draw_external_contours
+    from cartseg_tpu_torch.utils import image_io
+
+    frames = sorted(images.rglob("*.jpeg"))
+    names = sorted(p.name for p in overlays.iterdir())
+    if names != sorted(f"{p.stem}_overlay_512.png" for p in frames):
+        raise AssertionError(f"overlays: {len(names)} files for "
+                             f"{len(frames)} frames")
+    red = 0
+    for p in frames:
+        rel = p.relative_to(images)
+        mask = next(image_io.decode_png((d / f"{p.stem}.png").read_bytes())
+                    for d in (out_dir / rel.parent,
+                              out_dir / "uncertain" / rel.parent)
+                    if (d / f"{p.stem}.png").exists())
+        got = image_io.decode_png(
+            (overlays / f"{p.stem}_overlay_512.png").read_bytes())
+        frame = load_frame(p, S, 0.1, "cuda")
+        drawn = (got != frame).any(-1)
+        if not np.array_equal(got, draw_external_contours(
+                frame, mask // 255, (255, 0, 0), 2)) or \
+                drawn.any() != bool(mask.any()) or \
+                not (got[drawn] == (255, 0, 0)).all():
+            raise AssertionError(f"overlay of {rel} is off")
+        red += int(drawn.sum())
+    log(f"  overlays: one a frame ({len(frames)}), each the frame with its "
+        f"mask's outer contours in red ({red} pixels drawn in all), cv2 "
+        f"refused")
 
 
 def phase_jpeg_timing(dev, ir: Path, mr: Path, pth: Path,
@@ -4412,13 +4456,18 @@ def phase_rank(tmp: Path, pseudo: Path) -> None:
         f"{got[-1][4]:.4f})")
 
 
+# preview panels phase 4j writes, of the top-ranked rows
+MINING_PREVIEWS = 4
+
+
 def phase_mining(tmp: Path, pth: Path, images: Path, dev) -> None:
     """workloads/mine_hard_cases at its defaults (512^2, bs16) with
     model.pth as three members on the JPEG frames: the CSV's columns,
     one row a frame in descending composite, cc at 4 and 8 on
     [16,512,512]; then the metric body on the card against the CPU on
     the same probs (components equal, the rest within
-    MINING_BODY_TOL)."""
+    MINING_BODY_TOL); then MINING_PREVIEWS preview panels, each the
+    frame, its JET heat map and its contours."""
     from cartseg_tpu_torch.infer.engine import ensemble_probs_fn, load_member
     from cartseg_tpu_torch.infer.mining import metrics_body
     from cartseg_tpu_torch.infer.pseudo_labels import (IMAGENET_MEAN,
@@ -4472,6 +4521,38 @@ def phase_mining(tmp: Path, pth: Path, images: Path, dev) -> None:
     log(f"  mining metric body on [16,512,512] probs, card against CPU: "
         f"components equal ({card['components'].tolist()}), max |d| "
         f"{max(err.values()):.3g} (tolerance {MINING_BODY_TOL})")
+
+    # the preview panels of the top rows (MiningConfig.save_previews):
+    # frame | JET heat | contours, drawn without cv2
+    from cartseg_tpu_torch.infer.mining import MiningConfig, _save_previews
+    from cartseg_tpu_torch.postprocess.overlay import (apply_colormap_jet,
+                                                       draw_external_contours)
+    from cartseg_tpu_torch.utils import image_io
+
+    top = [{"path": r[0]} for r in rows[1:1 + MINING_PREVIEWS]]
+    seen = []
+
+    def recording_fwd(x):
+        pa, pb = fwd(x)
+        seen.append(((pa + pb) / 2.0)[0].cpu().numpy())
+        return pa, pb
+
+    t0 = time.perf_counter()
+    _save_previews(top, recording_fwd, MiningConfig(), tmp / "mining", dev,
+                   lambda m: None)
+    wall = time.perf_counter() - t0
+    for rank, (row, p) in enumerate(zip(top, seen)):
+        img = load_frame(row["path"], S, 0.1, dev)
+        want = np.concatenate([img, apply_colormap_jet(
+            (p * 255).astype(np.uint8)), draw_external_contours(
+            img, p > 0.5, (255, 0, 0), 2)], axis=1)
+        got = image_io.decode_png((tmp / "mining" / "previews" /
+                                   f"{rank:04d}_{Path(row['path']).stem}.png")
+                                  .read_bytes())
+        if not np.array_equal(got, want):
+            raise AssertionError(f"mining preview {rank} is off")
+    log(f"  mining previews: {len(top)} panels ({S}x{3 * S}) of the top "
+        f"rows, each frame | JET | contours, cv2 refused, {wall:.2f} s")
 
 
 def phase_evaluate(pth: Path, jir: Path, jmr: Path, tmp: Path) -> None:
@@ -4948,6 +5029,68 @@ def phase_shard(ckpts, frames: np.ndarray, dev, card: str) -> dict:
 
 
 
+# ------------------------------------------ seg_friendly without OpenCV
+
+# fp32 operations of one bilateral tap, for the operations bound: three
+# channels' multiply-add (an FMA counted as two) and the weight's
+# multiply and add
+BILATERAL_OPS_A_TAP = 3 * 2 + 2
+# noise beside frame 0: the frame's size, ragged tiles both ways, and
+# images narrower than the 7-pixel halo (reflected more than once)
+BILATERAL_SHAPES = ((720, 1280), (37, 53), (5, 3), (1, 11))
+
+
+def bilateral_bound(img: torch.Tensor) -> tuple:
+    """The larger of the taps' fp32 operations at the fp32 peak and the
+    image read and written once at the HBM rate."""
+    from cartseg_tpu_torch.ops.filters import bilateral_tables
+
+    h, w = img.shape[:2]
+    taps = len(bilateral_tables(15, 100.0, 15.0)[2])
+    t_ops = (h * w * taps * BILATERAL_OPS_A_TAP
+             / PEAK_FLOPS[torch.float32] * 1e3)
+    t_bytes, _ = bytes_bound(2 * nbytes(img))
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_bilateral(dev, card: str) -> dict:
+    """Phase 3 (b): ops/filters.py bilateral_u8's CUDA kernel against its
+    plain lane on the card, bit for bit, one launch a call: frame 0's
+    stored cv2 decode (1280x720, BGR) and uint8 noise at
+    BILATERAL_SHAPES. Then the kernel's device time on the frame beside
+    its bound, and the plain lane's (CUDA events). No PyTorch call
+    computes a bilateral filter."""
+    from cartseg_tpu_torch.ops.cuda import build
+    from cartseg_tpu_torch.ops.filters import bilateral_u8, bilateral_u8_plain
+    from cartseg_tpu_torch.utils import image_io
+
+    rgb = image_io.decode_png((FIXTURES / "frame_0.cv2.png").read_bytes())
+    frame = torch.from_numpy(np.ascontiguousarray(rgb[..., ::-1])).to(dev)
+    r = np.random.default_rng(SEED)
+    inputs = [("bilateral frame_0", frame)] + [
+        (f"bilateral noise {h}x{w}",
+         torch.from_numpy(r.integers(0, 256, (h, w, 3), np.uint8)).to(dev))
+        for h, w in BILATERAL_SHAPES]
+    err = 0.0
+    for name, x in inputs:
+        build.reset_launch_counts()
+        got = bilateral_u8(x)
+        if build.LAUNCHES["bilateral"] != 1:
+            raise AssertionError(f"{name}: {build.LAUNCHES['bilateral']} "
+                                 "launches")
+        err = max(err, check_equal(name, got, bilateral_u8_plain(x)))
+    ms = device_ms(lambda: bilateral_u8(frame), 20, match="bilateral")
+    plain = cuda_ms(lambda: bilateral_u8_plain(frame), 3)
+    bound, by = bilateral_bound(frame)
+    build.reset_launch_counts()
+    log(f"  bilateral_u8 at 720x1280x3 (d 15, 149 taps): kernel "
+        f"{ms:.4f} ms device time, 1 launch a call; bound {bound:.4f} ms "
+        f"({by}), {bound / ms:.3f} of it; plain lane {plain:.2f} ms "
+        f"(CUDA events) [{card}]")
+    return {"err": err, "ms": ms, "plain_ms": plain, "bound": (bound, by)}
+
+
+
 # phase 4m: the annotation path and the per-sample warp
 ANNOTATE_JPEGS = ("frame_0", "frame_1", "frame_2", "frame_4")  # 1280x720
 ANNOTATE_DISPLAY = 1024      # create_testset's --img_size
@@ -5022,16 +5165,20 @@ def phase_annotate(tmp: Path, member_pth: Path, sam_pth: Path,
     """Phase 4m (a): the annotation path on the card, cv2 and PIL refused
     by the caller: a Proposer (effnet-b0, bf16) and the SAM ViT-B
     predictor, a PrefetchWorker over 1280x720 JPEG fixtures at
-    create_testset's display size, and a scripted session on each item
-    (annotate_session). Each session starts once the worker has two items
-    queued (a user edits for seconds), so the predictor's thread has
-    embedded later images before every prompt. Fails unless each prompt's
-    mask equals set_image + predict on its image alone, the saved PNGs
-    decode to the session's mask, SAM's flash kernel ran 4 times an item
-    and CC once a hole fill (counts, and the kernels in CUDA graphs of
-    one call), fill_holes, smooth_mask and gaussian_blur_u8 on the card
-    equal their CPU lanes bit for bit, and the arrival-counter rows in
-    use are the same after the phase as before it."""
+    create_testset's display size with its default seg_friendly
+    preprocessing (make_easy, on the card), and a scripted session on
+    each item (annotate_session). Each session starts once the worker has
+    two items queued (a user edits for seconds), so the predictor's thread
+    has embedded later images before every prompt. Fails unless each
+    prompt's mask equals set_image + predict on its image alone, the saved
+    PNGs decode to the session's mask, SAM's flash kernel ran 4 times an
+    item, the bilateral kernel once an item and CC once a hole fill
+    (counts, and the kernels in CUDA graphs of one call), the card's
+    seg_friendly of frame 0's stored cv2 decode equals cv2's stored
+    seg_friendly of it bit for bit, fill_holes, smooth_mask and
+    gaussian_blur_u8 on the card equal their CPU lanes bit for bit, and
+    the arrival-counter rows in use are the same after the phase as
+    before it."""
     from cartseg_tpu_torch import geometry as G
     from cartseg_tpu_torch.ops.cuda import build
     from cartseg_tpu_torch.ops.cuda import channel_sums as cs
@@ -5050,7 +5197,7 @@ def phase_annotate(tmp: Path, member_pth: Path, sam_pth: Path,
     load_s = time.perf_counter() - t0
     build.reset_launch_counts()
     worker = A.PrefetchWorker(paths, proposer, sam,
-                              img_size=ANNOTATE_DISPLAY, make_easy=False,
+                              img_size=ANNOTATE_DISPLAY, make_easy=True,
                               device="cuda").start()
     items, waits, sessions, first_ms = [], [], [], []
     feed = iter(worker)
@@ -5071,8 +5218,10 @@ def phase_annotate(tmp: Path, member_pth: Path, sam_pth: Path,
         first_ms.append(ms)
     worker.join()
     torch.cuda.synchronize()
-    launches = {k: build.LAUNCHES[k] for k in ("flash_fwd", "cc")}
-    want = {"flash_fwd": SAM_GLOBAL_BLOCKS * len(paths), "cc": len(paths)}
+    launches = {k: build.LAUNCHES[k] for k in ("flash_fwd", "cc",
+                                                "bilateral")}
+    want = {"flash_fwd": SAM_GLOBAL_BLOCKS * len(paths), "cc": len(paths),
+            "bilateral": len(paths)}
     log(f"  {len(items)} items through the PrefetchWorker (display "
         f"{ANNOTATE_DISPLAY}^2, proposer {ANNOTATE_PROPOSER}^2, models "
         f"loaded in {load_s:.1f} s), {len(sam.calls)} prompts; launches "
@@ -5114,6 +5263,25 @@ def phase_annotate(tmp: Path, member_pth: Path, sam_pth: Path,
     log(f"  saved masks ({oh}x{ow} and {ANNOTATE_SAVE}^2, the port's PNG "
         f"codec) decode to the sessions' masks; fg share "
         f"{min(fg):.3f}..{max(fg):.3f}")
+
+    # the card's seg_friendly against cv2's (make_jpeg_fixtures.py's
+    # frame_0.seg_friendly.cv2.png): bit-equal on this frame, where the
+    # port's CPU lanes (which the card's equal) are too
+    # (tools/seg_friendly_against_cv2.py); on other frames IPP's
+    # bilateral quotient rounds a few values the other way
+    decoded = image_io.decode_png((FIXTURES / "frame_0.cv2.png").read_bytes())
+    want_sf = image_io.decode_png(
+        (FIXTURES / "frame_0.seg_friendly.cv2.png").read_bytes())
+    got_sf = A.seg_friendly(np.ascontiguousarray(decoded[..., ::-1]),
+                            "cuda")[..., ::-1]
+    sf_ms = cuda_ms(lambda: A.seg_friendly(decoded, "cuda"), 5)
+    log(f"  seg_friendly of frame_0's cv2 decode on the card: "
+        f"{int((got_sf != want_sf).sum())} values differ from cv2's stored "
+        f"seg_friendly; {sf_ms:.2f} ms a 1280x720 frame with its copies "
+        f"(CUDA events) [{card}]")
+    if not np.array_equal(got_sf, want_sf):
+        raise AssertionError("4m: seg_friendly on the card differs from "
+                             "cv2's")
 
     # the card's image ops against their CPU lanes, bit for bit: the
     # sessions' masks, blob masks with holes, a noise mask
@@ -5184,7 +5352,9 @@ def phase_annotate(tmp: Path, member_pth: Path, sam_pth: Path,
         t = item.timings
         log(f"  item {k} ({item.path.name}) prepared in "
             f"{sum(t.values()) * 1e3:.2f} ms: read (nvJPEG) "
-            f"{t['read'] * 1e3:.2f}, letterbox {t['letterbox'] * 1e3:.2f}, "
+            f"{t['read'] * 1e3:.2f}, seg_friendly "
+            f"{t['seg_friendly'] * 1e3:.2f}, letterbox "
+            f"{t['letterbox'] * 1e3:.2f}, "
             f"proposer {t['propose'] * 1e3:.2f}, SAM embed "
             f"{t['embed'] * 1e3:.2f}; the consumer waited {waits[k]:.2f} ms "
             f"for it; its first prompt {first_ms[k]:.2f} ms [{card}]")
@@ -5208,10 +5378,12 @@ def phase_annotate(tmp: Path, member_pth: Path, sam_pth: Path,
         f"{len(sam.calls)}); smooth_mask {smooth:.3f} ms, fill_holes "
         f"{fill:.3f} ms at {ANNOTATE_DISPLAY}^2 (CUDA events) [{card}]")
     prep = [float(np.median([i.timings[k] * 1e3 for i in items]))
-            for k in ("read", "letterbox", "propose", "embed")]
+            for k in ("read", "seg_friendly", "letterbox", "propose",
+                      "embed")]
     return {"launches": launches, "waits": waits, "first_ms": first_ms,
             "predict_ms": predict_ms, "smooth_ms": smooth, "fill_ms": fill,
-            "prep": prep, "decode_ms": dec, "post_ms": post}
+            "prep": prep, "decode_ms": dec, "post_ms": post,
+            "seg_friendly_ms": sf_ms}
 
 
 def phase_per_sample_warp(dev, card: str) -> dict:
@@ -5317,6 +5489,8 @@ def main() -> int:
                      for k, e in bwd_errs[FLASH_CASES[0]].items()})
         errs["channel_sums"] = phase_compare_channel_sums(dev)
         errs.update(phase_compare_zoo(dev))
+        bilateral = phase_bilateral(dev, card)
+        errs["bilateral"] = bilateral["err"]
 
         phase_done("3")
         log("phase 4a: pseudo-label workload")
@@ -5413,8 +5587,9 @@ def main() -> int:
         del ddp_ref
         shard = phase_shard(ckpts, frames, dev, card)
         phase_done("4l")
-        log("phase 4m: SAM-assisted annotation on the card, cv2 and PIL "
-            "refused; the per-sample warp")
+        log("phase 4m: SAM-assisted annotation on the card with its "
+            "seg_friendly preprocessing, cv2 and PIL refused; the "
+            "per-sample warp")
         with refuse_modules("cv2", "PIL"):
             annotate = phase_annotate(tmp, ckpts[0],
                                       tmp / "sam_vit_b_seed0.pth", card)
@@ -5477,6 +5652,11 @@ def main() -> int:
         launches[k] = zoo_launches[k]
         ms, plain, lib, b, by = zoo_timing[k]
         times[k], bounds[k], library[k] = (ms, plain), (b, by), lib
+    # the bilateral filter: phase 4m's count (one a seg_friendly), phase
+    # 3's times at 1280x720; no PyTorch call computes it
+    launches["bilateral"] = annotate["launches"]["bilateral"]
+    times["bilateral"] = (bilateral["ms"], bilateral["plain_ms"])
+    bounds["bilateral"], library["bilateral"] = bilateral["bound"], None
     # the tail of the output keeps these, whatever phase 5 printed
     log(f"4k serving: {serve['batch_ms']:.3f} ms a device batch of "
         f"{SERVE_BS}, {serve['img_s']:.1f} img/s; request latency p50 "
@@ -5495,11 +5675,13 @@ def main() -> int:
         f"{annotate['predict_ms']:.2f} ms, smooth_mask "
         f"{annotate['smooth_ms']:.3f} ms, fill_holes "
         f"{annotate['fill_ms']:.3f} ms at {ANNOTATE_DISPLAY}^2; launches "
-        f"{annotate['launches']}; an item's read / letterbox / proposer "
-        f"/ embed ms (median) {fmt_list(annotate['prep'])}; decode "
+        f"{annotate['launches']}; an item's read / seg_friendly / "
+        f"letterbox / proposer / embed ms (median) "
+        f"{fmt_list(annotate['prep'])}; decode "
         f"{annotate['decode_ms']:.3f}, postprocess "
-        f"{annotate['post_ms']:.3f} ms; per-sample warp max |d| "
-        f"{warp['max']:.3e} [{card}]")
+        f"{annotate['post_ms']:.3f} ms; seg_friendly "
+        f"{annotate['seg_friendly_ms']:.2f} ms a frame; per-sample warp "
+        f"max |d| {warp['max']:.3e} [{card}]")
     log("phase walls (s): " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in walls.items())
         + f"; total {sum(walls.values()):.1f}")

@@ -33,6 +33,7 @@ from cartseg_tpu_torch.train import LossSpec
 from cartseg_tpu_torch.utils.synthetic import blob_masks
 from cartseg_tpu_torch.workloads import train_with_boundary_loss as t_workload
 from torch_port_helpers import one_torch_thread, png_pair_tree  # noqa: F401
+from torch_port_helpers import pinned_jax_native  # noqa: F401
 
 SHAPE = (4, 24, 32)
 HW, BS = 64, 2

@@ -41,6 +41,7 @@ from cartseg_tpu_torch.utils.synthetic import frame, make_png_pair_tree
 from cartseg_tpu_torch.workloads import create_pseudo_labels as t_pseudo_cli
 from cartseg_tpu_torch.workloads import evaluate as t_eval_cli
 from torch_port_helpers import one_torch_thread  # noqa: F401
+from torch_port_helpers import pinned_jax_native  # noqa: F401
 from torch_port_helpers import (jax_pth_members_f32,  # noqa: F401
                                 port_effnet_and_jax_twin)
 

@@ -43,7 +43,7 @@ from cartseg_tpu_torch.train import Trainer as TTrainer
 from cartseg_tpu_torch.train.engine import SCHEMAS
 from cartseg_tpu_torch.utils.profiling import TRACE_NAME, maybe_trace
 from torch_port_helpers import (jax_train_state_to_port,  # noqa: F401
-                                one_torch_thread)
+                                one_torch_thread, pinned_jax_native)
 
 HW, BS = 64, 2
 FINETUNES = ("finetune_bce_dice_abl", "finetune_pseudo",

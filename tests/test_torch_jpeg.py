@@ -30,6 +30,7 @@ from cartseg_tpu_torch.infer.pseudo_labels import load_frame  # noqa: E402
 from cartseg_tpu_torch.tools import make_jpeg_fixtures as MF  # noqa: E402
 from cartseg_tpu_torch.utils import jpeg  # noqa: E402
 from torch_port_helpers import one_torch_thread  # noqa: E402,F401
+from torch_port_helpers import pinned_jax_native  # noqa: E402,F401
 
 FIXTURES = MF.OUT
 JPEGS = sorted(FIXTURES.glob("*.jpeg"))
@@ -87,7 +88,7 @@ def test_fixtures_are_what_the_tool_writes(tmp_path):
     MF.write_fixtures(tmp_path)
     names = sorted(p.name for p in tmp_path.iterdir())
     assert names == sorted(p.name for p in FIXTURES.iterdir())
-    assert len(names) == 33
+    assert len(names) == 34
     for n in names:
         assert (tmp_path / n).read_bytes() == (FIXTURES / n).read_bytes(), n
     rot = cv2.imread(str(FIXTURES / "frame_2_exif6.jpeg"))

@@ -50,6 +50,11 @@ it: both use IEEE expf/log1pf/tanhf/powf, but nvcc contracts a*b+c into
 FMAs where eager PyTorch rounds twice; soft-Dice's per-sample sums
 within 1e-6 relative (fp32 sums of non-negative terms in another order,
 about twenty additions deep), and the same bits on a second run.
+
+The bilateral filter (csrc/bilateral.cu) against `bilateral_u8_plain`
+bit for bit: the same float32 multiplies, adds, fused multiply-adds and
+division in the same tap order, each an explicitly rounded intrinsic in
+the kernel and emulated exactly in the plain lane.
 """
 
 from collections import Counter
@@ -76,6 +81,7 @@ from cartseg_tpu_torch.ops.cuda.activations import (act_bwd, act_bwd_plain,
                                                     act_fwd, act_fwd_plain)
 from cartseg_tpu_torch.ops.cuda.focal import focal_fwd, focal_plain
 from cartseg_tpu_torch.ops.cuda.one_hot import one_hot, one_hot_plain
+from cartseg_tpu_torch.ops.filters import bilateral_u8, bilateral_u8_plain
 from cartseg_tpu_torch.ops.cuda.soft_dice import (soft_dice_sums,
                                                   soft_dice_sums_plain)
 from cartseg_tpu_torch.utils.profiling import graph_nodes
@@ -536,6 +542,10 @@ def test_launch_counters_count_kernel_launches_only(cuda_device):
     for kind in ("mish", "swish", "hswish"):
         act_fwd(vc, kind)
         act_bwd(vc, vc, kind)
+    img = torch.zeros((4, 5, 3), dtype=torch.uint8)
+    bilateral_u8(img)                             # CPU: plain version
+    bilateral_u8_plain(img.to(cuda_device))       # plain: no count
+    bilateral_u8(img.to(cuda_device))
     assert build.LAUNCHES == {"cc": 1, "reach": 1, "median": 1, "edt": 1,
                               "lsr_fwd": 1, "lsr_bwd": 1, "flash_fwd": 1,
                               "flash_fwd_tc": 1, "flash_bwd_dq": 1,
@@ -543,7 +553,8 @@ def test_launch_counters_count_kernel_launches_only(cuda_device):
                               "channel_sums": 1, "focal": 1, "soft_dice": 1,
                               "one_hot": 1, "mish_fwd": 1, "mish_bwd": 1,
                               "swish_fwd": 1, "swish_bwd": 1,
-                              "hswish_fwd": 1, "hswish_bwd": 1}
+                              "hswish_fwd": 1, "hswish_bwd": 1,
+                              "bilateral": 1}
     build.reset_launch_counts()
 
 
@@ -1393,3 +1404,25 @@ def test_loss_zoo_on_the_card_launches_the_kernels(cuda_device):
               "lsr_fwd", "lsr_bwd"):
         assert build.LAUNCHES[k] > 0, k
     build.reset_launch_counts()
+
+
+@pytest.mark.parametrize("h,w,smooth", [(720, 1280, 0), (720, 1280, 1),
+                                        (37, 53, 0), (5, 3, 0), (1, 11, 0)])
+def test_bilateral_kernel_bit_equal_plain(cuda_device, h, w, smooth):
+    """csrc/bilateral.cu against bilateral_u8_plain on the card: the same
+    float32 operations in the same order, bit for bit (noise, and noise
+    averaged over 4x4 blocks, whose flat areas put many quotients near a
+    half)."""
+    x = torch.from_numpy(np.random.default_rng(h + w).integers(
+        0, 256, (h, w, 3), np.uint8)).to(cuda_device)
+    if smooth:
+        x = x.float().permute(2, 0, 1)[None]
+        x = torch.nn.functional.avg_pool2d(x, 4, 1, padding=2)[0]
+        x = x[:, :h, :w].round().to(torch.uint8).permute(1, 2, 0)
+        x = x.contiguous()
+    build.reset_launch_counts()
+    got = bilateral_u8(x)
+    assert build.LAUNCHES["bilateral"] == 1
+    want = bilateral_u8_plain(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

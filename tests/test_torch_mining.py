@@ -19,6 +19,7 @@ default); the tests load them in float32, the port's CPU dtype.
 
 import csv
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -186,11 +187,37 @@ def test_mine_hard_cases_cli_matches_jax(pth, jpeg_free_tree, runs, tmp_path,
 
 def test_mining_previews_need_cv2(members, jpeg_free_tree, tmp_path,
                                   monkeypatch):
+    """The previews need no OpenCV now: with cv2 refused, mine_hard_cases
+    writes one image | JET heat | contours panel a row, each what the
+    JAX module's cv2 calls draw from the same probabilities."""
+    tm = members[1]
+    thr = 0.5
+    fwd = TE.ensemble_probs_fn(tm, IMAGENET_MEAN, IMAGENET_STD,
+                               tta_flip=True)
     monkeypatch.setitem(sys.modules, "cv2", None)
     cfg = TMi.MiningConfig(images_root=str(jpeg_free_tree),
-                           out_dir=str(tmp_path), save_previews=True)
-    with pytest.raises(RuntimeError, match="cv2"):
-        TMi.mine_hard_cases(members[1], cfg, device="cpu")
+                           out_dir=str(tmp_path), save_previews=True,
+                           img_size=HW, batch_size=3, threshold=thr)
+    rows = TMi.mine_hard_cases(tm, cfg, device="cpu")
+    monkeypatch.delitem(sys.modules, "cv2")
+    import cv2
+
+    previews = sorted((tmp_path / "previews").iterdir())
+    assert len(previews) == len(rows) == 7
+    for rank, row in enumerate(rows):
+        img = TMi.load_frame(row["path"], HW, 0.1, "cpu")
+        probs, flip = fwd(torch.from_numpy(img[None]))
+        p = ((probs + flip) / 2.0)[0].numpy()
+        overlay = img.copy()
+        cnts, _ = cv2.findContours((p > thr).astype(np.uint8),
+                                   cv2.RETR_EXTERNAL, cv2.CHAIN_APPROX_SIMPLE)
+        cv2.drawContours(overlay, cnts, -1, (255, 0, 0), 2)
+        heat = cv2.applyColorMap((p * 255).astype(np.uint8),
+                                 cv2.COLORMAP_JET)[..., ::-1]
+        name = f"{rank:04d}_{Path(row['path']).stem}.png"
+        np.testing.assert_array_equal(
+            image_io.decode_png((tmp_path / "previews" / name).read_bytes()),
+            np.concatenate([img, heat, overlay], axis=1))
 
 
 def test_mining_config_has_no_mesh():

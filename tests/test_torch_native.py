@@ -28,6 +28,7 @@ from cartseg_tpu_torch import geometry as TG  # noqa: E402
 from cartseg_tpu_torch import native as TN  # noqa: E402
 from cartseg_tpu_torch.data.dataset import resize_nearest  # noqa: E402
 from torch_port_helpers import one_torch_thread  # noqa: E402,F401
+from torch_port_helpers import pinned_jax_native  # noqa: E402,F401
 
 # (frame h, w, output side): camera frames to 512^2 and 224^2, an
 # upscale, and a frame whose letterbox is exactly 1024^2 (854 + 2 * 85)
@@ -38,12 +39,6 @@ CASES = [(720, 1280, 512), (720, 1280, 224), (300, 400, 512),
 def _frame(h, w, seed, smooth):
     img = np.random.default_rng(seed).integers(0, 256, (h, w, 3), np.uint8)
     return cv2.GaussianBlur(img, (0, 0), 2.0) if smooth else img
-
-
-@pytest.fixture(scope="module", autouse=True)
-def jax_native():
-    if not JN.available():
-        pytest.fail("the JAX package's native library did not build")
 
 
 @pytest.mark.parametrize("ratio", [0.1, 0.0])

@@ -72,7 +72,8 @@ from cartseg_tpu_torch.workloads import _runner
 from cartseg_tpu_torch.workloads import train_bce_dice as t_workload
 from torch_port_helpers import (jax_train_state_to_port,  # noqa: F401
                                 jax_tree_to_numpy, load_jax_state_into_port,
-                                one_torch_thread, png_pair_tree)
+                                one_torch_thread, pinned_jax_native,
+                                png_pair_tree)
 
 HW, BS = 64, 2
 LANES = ("torch", "channel_sums")

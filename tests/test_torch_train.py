@@ -59,7 +59,7 @@ from cartseg_tpu_torch.train.engine import SCHEMAS
 from torch_port_helpers import (jax_effnet_variables,  # noqa: F401
                                 jax_train_state_to_port,
                                 load_jax_state_into_port, one_torch_thread,
-                                png_pair_tree)
+                                pinned_jax_native, png_pair_tree)
 
 HW, BS = 64, 2
 

@@ -184,6 +184,29 @@ def jax_pth_members_f32(monkeypatch):
 
 
 @pytest.fixture(scope="module", autouse=True)
+def pinned_jax_native(tmp_path_factory):
+    """The JAX package's native library, built by its own loader into a
+    file of this module's alone, for the length of a test module.
+
+    cartseg_tpu.native compiles `_cartseg_native.so` in place beside its
+    sources and remembers a failed build or load for the life of the
+    process, so pytest workers that build or load that one file at once
+    can leave a worker whose JAX dataset falls back to cv2 for good.
+    Autouse in every module that imports it: those whose comparisons
+    depend on the JAX native lane (its dataset's letterbox + resize)."""
+    from cartseg_tpu import native as JN
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JN, "_SO", tmp_path_factory.mktemp("jax_native")
+                   / JN._SO.name)
+        mp.setattr(JN, "_lib", None)
+        mp.setattr(JN, "_tried", False)
+        if JN.get_lib() is None:
+            pytest.fail("the JAX package's native library did not build")
+        yield JN
+
+
+@pytest.fixture(scope="module", autouse=True)
 def one_torch_thread():
     """Run a test module's torch CPU ops on one thread. The suite runs
     six pytest workers on a few cores; torch's default of one OpenMP
