@@ -37,6 +37,7 @@ from cartseg_tpu_torch.ops.connected_components import (
     remove_small_components)
 from cartseg_tpu_torch.ops.cuda.median import median_nonneg_last_axis
 from cartseg_tpu_torch.ops.edges import edge_hit_rate
+from cartseg_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -189,21 +190,29 @@ def pseudo_label_program(members: Sequence[EnsembleMember], mean, std,
 
     fg_area is taken on the CLEANED mask (the reference computes it
     after clean_mask, create_pseudo_labels.py:235); every other stat is
-    on the raw thresholded probs, as engine.py:171-209."""
+    on the raw thresholded probs, as engine.py:171-209.
+
+    Each call is the span `pseudo_label.program` around the spans
+    `pseudo_label.forward_tta`, `.cleanup` and `.qc`
+    (utils/profiling.py `span`)."""
     forward_tta = _tta(_ensemble_forward(members, mean, std))
     qc = qc_stats_fn(edge_threshold=edge_threshold, edge_method=edge_method,
                      canny_low=canny_low, canny_high=canny_high)
+    dev = members_device(members)
 
     @torch.inference_mode()
     def program(images_u8: torch.Tensor, threshold: float):
-        with fp32_policy():
-            probs, probs_flip = forward_tta(images_u8)
-            pred = remove_small_components(probs >= threshold, min_area)
-            stats = qc(probs, probs_flip, images_u8, threshold)
-            stats["fg_area"] = pred.to(torch.float32).mean((1, 2))
+        with span("pseudo_label.program", dev), fp32_policy():
+            with span("pseudo_label.forward_tta", dev):
+                probs, probs_flip = forward_tta(images_u8)
+            with span("pseudo_label.cleanup", dev):
+                pred = remove_small_components(probs >= threshold, min_area)
+            with span("pseudo_label.qc", dev):
+                stats = qc(probs, probs_flip, images_u8, threshold)
+                stats["fg_area"] = pred.to(torch.float32).mean((1, 2))
         return pred, probs, stats
 
-    program.device = members_device(members)
+    program.device = dev
     program.replicate = lambda device: pseudo_label_program(
         replicate_members(members, device), mean, std, min_area,
         edge_threshold, edge_method, canny_low, canny_high)

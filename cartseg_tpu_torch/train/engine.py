@@ -18,7 +18,8 @@ the val source split off, one epoch order drawn by `WeightedSampler`
 its source, the last of three or more on the curriculum ramp. `remat`
 recomputes the forward in the backward (torch.utils.checkpoint; the BN
 layers update their running statistics once, models/norm.py).
-`trace_dir` writes a torch.profiler trace of epoch 0's train loop.
+`trace_dir` writes a torch.profiler trace of epoch 0's train loop, the
+step's spans (`train.*`, utils/profiling.py `span`) among its events.
 An Orbax `init_checkpoint` raises (train/config.py `check_supported`).
 
 Data parallelism (`use_mesh` under an initialised process group,
@@ -84,7 +85,7 @@ from cartseg_tpu_torch.train.optim import (AdamWState, adamw_update,
                                            group_ids, init_adamw)
 from cartseg_tpu_torch.train.schedules import FreezePhase, cosine_epoch_lr
 from cartseg_tpu_torch.utils.io import CSVLogger, JSONHistory
-from cartseg_tpu_torch.utils.profiling import StepTimer, maybe_trace
+from cartseg_tpu_torch.utils.profiling import maybe_trace, span
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
            "float32": torch.float32}
@@ -353,42 +354,53 @@ class Trainer:
         as device tensors. Under data parallelism the inputs are this
         rank's rows of the global batch, the gradient is DDP's average
         over the ranks and the loss and components returned are the
-        global batch's."""
-        cfg = self.cfg
+        global batch's. The step is the span `train.step` around the
+        spans `train.augment`, `.forward`, `.loss`, `.backward` (DDP's
+        loss all-reduce included) and `.optimizer` (clip, the non-finite
+        gate, AdamW; utils/profiling.py `span`)."""
+        cfg, dev = self.cfg, self.device
         model = state.model.train()
         n = images_u8.shape[0] * self.world
         rows = mesh.host_batch_slice(n) if state.ddp is not None else None
-        imgs, m = augment_batch(state.gen, images_u8, masks, self.aug_cfg,
-                                rows, n)
-        logits = self._forward(model, imgs, state.ddp)
-        loss, comps = self.loss_fn(logits, m, sample_w)
         params = state.params
-        if state.ddp is not None:
-            # DDP averages the ranks' gradients in the backward
-            for p in params.values():
-                p.grad = None
-            loss.backward()
-            grads = {k: p.grad for k, p in params.items()}
-            loss, comps = self._global_step_values(loss, comps)
-        else:
-            grads = dict(zip(params, torch.autograd.grad(
-                loss, list(params.values()))))
-        if cfg.clip_grad_norm > 0:
-            gnorm = torch.linalg.vector_norm(torch.stack(
-                torch._foreach_norm(list(grads.values()))))
-            scale = torch.clamp(cfg.clip_grad_norm
-                                / torch.clamp(gnorm, min=1e-12), max=1.0)
-            torch._foreach_mul_(list(grads.values()), scale)
-        ok = None
-        if cfg.skip_nonfinite:
-            # a bad batch must not poison params or moments: gate the
-            # whole update on a finite loss, on the device
-            ok = torch.isfinite(loss).to(torch.float32)
-            for g in grads.values():
-                torch.nan_to_num_(g, nan=0.0, posinf=0.0, neginf=0.0)
-            loss = torch.where(ok > 0, loss, 0.0)
-        adamw_update(params, grads, state.opt, gids, lrs, active,
-                     cfg.weight_decay, ok)
+        with span("train.step", dev):
+            with span("train.augment", dev):
+                imgs, m = augment_batch(state.gen, images_u8, masks,
+                                        self.aug_cfg, rows, n)
+            with span("train.forward", dev):
+                logits = self._forward(model, imgs, state.ddp)
+            with span("train.loss", dev):
+                loss, comps = self.loss_fn(logits, m, sample_w)
+            with span("train.backward", dev):
+                if state.ddp is not None:
+                    # DDP averages the ranks' gradients in the backward
+                    for p in params.values():
+                        p.grad = None
+                    loss.backward()
+                    grads = {k: p.grad for k, p in params.items()}
+                    loss, comps = self._global_step_values(loss, comps)
+                else:
+                    grads = dict(zip(params, torch.autograd.grad(
+                        loss, list(params.values()))))
+            with span("train.optimizer", dev):
+                if cfg.clip_grad_norm > 0:
+                    gnorm = torch.linalg.vector_norm(torch.stack(
+                        torch._foreach_norm(list(grads.values()))))
+                    scale = torch.clamp(
+                        cfg.clip_grad_norm / torch.clamp(gnorm, min=1e-12),
+                        max=1.0)
+                    torch._foreach_mul_(list(grads.values()), scale)
+                ok = None
+                if cfg.skip_nonfinite:
+                    # a bad batch must not poison params or moments: gate
+                    # the whole update on a finite loss, on the device
+                    ok = torch.isfinite(loss).to(torch.float32)
+                    for g in grads.values():
+                        torch.nan_to_num_(g, nan=0.0, posinf=0.0,
+                                          neginf=0.0)
+                    loss = torch.where(ok > 0, loss, 0.0)
+                adamw_update(params, grads, state.opt, gids, lrs, active,
+                             cfg.weight_decay, ok)
         state.step += 1
         ok = ok if ok is not None else torch.ones((), device=loss.device)
         return (loss.detach(), ok,
@@ -566,7 +578,7 @@ class Trainer:
                                                         w_epoch)))
 
             losses, oks, comps_acc = [], [], []
-            timer = StepTimer()
+            t_epoch, epoch_images = time.perf_counter(), 0
             with maybe_trace(cfg.trace_dir if epoch == 0 else None, dev):
                 for bi, (imgs, masks) in enumerate(loader(order)):
                     b = imgs.shape[0]
@@ -583,7 +595,7 @@ class Trainer:
                     if comps:
                         comps_acc.append(comps)
                     images_seen += b * self.world
-                    timer.step(b * self.world)
+                    epoch_images += b * self.world
 
             vlosses, vns, sum_acc = [], [], []
             for bi, (imgs, masks) in enumerate(val_loader(val_order())):
@@ -627,8 +639,8 @@ class Trainer:
                         [c["boundary_used"] for c in comps_acc]).mean())
             if cfg.log_throughput:
                 # wall-clock epoch rate, train + val, after the sync above
-                row["images_per_sec"] = round(
-                    timer.rates()["images_per_sec"], 2)
+                row["images_per_sec"] = round(epoch_images / max(
+                    time.perf_counter() - t_epoch, 1e-9), 2)
             if main:
                 csv_log.append(row)
                 history.append(row)
