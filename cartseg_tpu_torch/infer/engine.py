@@ -12,7 +12,11 @@ On the card the model computes in bf16 (as the JAX workload does,
 engine.py:38) and the logits are cast to fp32 before the sigmoid;
 float32 convolutions and matmuls outside the model are kept in full
 float32 for each call (`device.fp32_policy`: cuDNN TF32 off, the
-caller's flags restored after it).
+caller's flags restored after it). There the members and their input
+are also stored NHWC (`channels_last`), as the frames arrive: cuDNN
+then runs the convolutions, depthwise ones included, with no layout
+transposes around them (it still transposes the one-channel head's
+output, in either layout). On the CPU both stay NCHW.
 
 Each program carries `.device`, its members' device, and
 `.replicate(device)`, the same program over copies of the members on
@@ -49,11 +53,22 @@ class EnsembleMember:
 
 def prepare_model(model: nn.Module, device, dtype=None) -> nn.Module:
     """Eval model on `device`, in `dtype` (default: bf16 on the card,
-    fp32 on the CPU)."""
+    fp32 on the CPU); stored NHWC on the card (`model_input`)."""
     device = resolve_device(device)
     if dtype is None:
         dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    return model.to(device=device, dtype=dtype).eval()
+    model = model.to(device=device, dtype=dtype).eval()
+    if device.type == "cuda":
+        model = model.to(memory_format=torch.channels_last)
+    return model
+
+
+def model_input(x: torch.Tensor) -> torch.Tensor:
+    """NHWC [B,H,W,C] -> the models' [B,C,H,W]: on the card the permuted
+    view itself, which is `channels_last` like the members there; on the
+    CPU an NCHW copy, like the members there."""
+    x = x.permute(0, 3, 1, 2)
+    return x if x.device.type == "cuda" else x.contiguous()
 
 
 def read_threshold_sidecar(pth_path: Path, default: float = 0.5) -> float:
@@ -110,8 +125,9 @@ def _ensemble_forward(members: Sequence[EnsembleMember], mean, std):
         dev = images_u8.device
         m = torch.tensor(mean, dtype=torch.float32, device=dev)
         s = torch.tensor(std, dtype=torch.float32, device=dev)
-        x = ((images_u8.to(torch.float32) / 255.0 - m) / s)
-        x = x.permute(0, 3, 1, 2).contiguous()           # NHWC -> NCHW
+        x = model_input((images_u8.to(torch.float32) / 255.0 - m) / s)
+        # cast once: a member of the same dtype takes x as it is
+        x = x.to(next(members[0].model.parameters()).dtype)
         probs = None
         for member, w in zip(members, ws):
             dtype = next(member.model.parameters()).dtype

@@ -40,7 +40,7 @@ import torch.nn as nn
 from cartseg_tpu_torch import geometry
 from cartseg_tpu_torch.data.augment import IMAGENET_MEAN, IMAGENET_STD
 from cartseg_tpu_torch.device import resolve_device
-from cartseg_tpu_torch.infer.engine import (prepare_model,
+from cartseg_tpu_torch.infer.engine import (model_input, prepare_model,
                                             read_threshold_sidecar)
 from cartseg_tpu_torch.models.factory import build_model
 
@@ -109,8 +109,8 @@ class InferenceModule(nn.Module):
         self.register_buffer("std", torch.tensor(std, dtype=torch.float32))
 
     def forward(self, x_u8: torch.Tensor) -> torch.Tensor:
-        x = (x_u8.to(torch.float32) / 255.0 - self.mean) / self.std
-        x = x.permute(0, 3, 1, 2).contiguous()
+        x = model_input((x_u8.to(torch.float32) / 255.0 - self.mean)
+                        / self.std)
         dtype = next(self.model.parameters()).dtype
         logits = self.model(x.to(dtype))
         return torch.sigmoid(logits[:, 0].to(torch.float32))

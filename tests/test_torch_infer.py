@@ -15,6 +15,7 @@ Tolerances (fp32 on the CPU, same weights bridged by models/convert.py):
     weak/strong maps.
 """
 
+import copy
 import csv
 from pathlib import Path
 
@@ -105,6 +106,37 @@ def test_program_stats_match_jax(jax_run, torch_run, key):
     got, want = torch_run[3][key], jax_run[2][key]
     assert got.shape == want.shape == (2,)
     np.testing.assert_allclose(got, want, atol=1e-3)
+
+
+def test_prepare_model_keeps_the_cpu_nchw(pair):
+    """On the CPU the members stay NCHW (the card stores them NHWC,
+    tests/test_torch_infer_cuda.py): every 4-D weight NCHW-contiguous,
+    the 3x3 ones not also channels_last."""
+    _, tm = pair
+    for m in tm:
+        weights = [p for p in m.model.parameters() if p.dim() == 4]
+        assert weights and all(p.is_contiguous() for p in weights)
+        assert not all(p.is_contiguous(memory_format=torch.channels_last)
+                       for p in weights)
+
+
+def test_channels_last_members_give_the_same_probs(pair, frames):
+    """The same members stored channels_last give the NCHW members'
+    flip-TTA probabilities within fp32 roundoff: the layout changes the
+    storage order alone."""
+    _, tm = pair
+    nhwc = [TE.EnsembleMember(
+        copy.deepcopy(m.model).to(memory_format=torch.channels_last),
+        m.weight, m.threshold) for m in tm]
+    x = torch.from_numpy(frames)
+    want = TE.ensemble_probs_fn(tm, IMAGENET_MEAN, IMAGENET_STD,
+                                tta_flip=True)(x)
+    got = TE.ensemble_probs_fn(nhwc, IMAGENET_MEAN, IMAGENET_STD,
+                               tta_flip=True)(x)
+    assert any(p.dim() == 4 and not p.is_contiguous()
+               for p in nhwc[0].model.parameters())
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=1e-5)
 
 
 def test_canny_edge_maps_agree(frames):
