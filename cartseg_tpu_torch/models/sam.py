@@ -31,6 +31,16 @@ casts its input, weight and bias to `dtype` and returns `dtype` (flax
 float32 and returns `dtype` (flax `nn.LayerNorm(dtype=)`), and the
 residual stream follows. Only those layers cast, so `torch.autocast`
 (which keeps layer_norm outputs in float32) is not used.
+
+`Sam.forward(images, boxes)` is the training forward of a box-prompted
+fine-tune (MedSAM, arXiv:2304.12306): one box a frame, one mask out,
+the low-resolution logits upsampled to the input size. The trainer
+(train/engine.py) runs it through `Trainer.train_step`. Its layers are
+spans (utils/profiling.py `span`): `sam.image_encoder`, inside it
+`sam.window_attn` around each windowed block's attention with its
+partition and unpartition and `sam.global_attn` around each global
+block's, and `sam.mask_decoder` around the prompt embedding, the
+decoder and the upsample.
 """
 
 from __future__ import annotations
@@ -46,6 +56,7 @@ import torch.nn.functional as F
 
 from cartseg_tpu_torch.device import resolve_device
 from cartseg_tpu_torch.ops import flash_attention as fa
+from cartseg_tpu_torch.utils.profiling import span
 
 __all__ = ["SamConfig", "Sam", "ImageEncoderViT", "PromptEncoder",
            "MaskDecoder", "SamEmbedding", "SamPredictor", "build_sam_vit_b",
@@ -296,11 +307,14 @@ class ViTBlock(nn.Module):
         shortcut = x
         y = self.norm1(x)
         if self.window_size > 0:
-            h, w = y.shape[1], y.shape[2]
-            y, pad_hw = _window_partition(y, self.window_size)
-        y = self.attn(y)
-        if self.window_size > 0:
-            y = _window_unpartition(y, self.window_size, pad_hw, (h, w))
+            with span("sam.window_attn", y.device):
+                h, w = y.shape[1], y.shape[2]
+                y, pad_hw = _window_partition(y, self.window_size)
+                y = self.attn(y)
+                y = _window_unpartition(y, self.window_size, pad_hw, (h, w))
+        else:
+            with span("sam.global_attn", y.device):
+                y = self.attn(y)
         x = shortcut + y
         return x + self.mlp(self.norm2(x))
 
@@ -357,11 +371,12 @@ class ImageEncoderViT(nn.Module):
     def forward(self, x):
         """x: (B, img, img, 3) preprocessed floats -> (B, g, g, C) in the
         compute dtype."""
-        y = self.patch_embed(x)
-        y = y + self.pos_embed.to(y.dtype)
-        for blk in self.blocks:
-            y = blk(y)
-        return self.neck(y.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        with span("sam.image_encoder", x.device):
+            y = self.patch_embed(x)
+            y = y + self.pos_embed.to(y.dtype)
+            for blk in self.blocks:
+                y = blk(y)
+            return self.neck(y.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
 # ----------------------------------------------------- prompt encoder
@@ -612,9 +627,30 @@ class Sam(nn.Module):
     def encode_image(self, x):
         return self.image_encoder(x)
 
+    def forward(self, images, boxes):
+        """The box-prompted training forward (MedSAM's `MedSAM.forward`):
+        images (B, img, img, 3) already normalised (`preprocess`'s
+        (x - pixel_mean) / pixel_std, unpadded); boxes (B, 4) xyxy in
+        input pixels, one a frame, embedded as the official two corner
+        tokens (labels 2 and 3, as `SamPredictor._prompt_tokens` gives
+        them) beside the no-mask dense embedding. Returns the first mask
+        token's logits (`multimask_output=False`), upsampled bilinearly
+        from (4g)^2 to img^2 with half-pixel centres (the official
+        `postprocess_masks` resize): (B, 1, img, img) in the compute
+        dtype."""
+        feats = self.image_encoder(images)
+        with span("sam.mask_decoder", images.device):
+            b = boxes.shape[0]
+            # made on the device: a host tensor's copy would wait for it
+            labels = torch.arange(2, 4, device=boxes.device).expand(b, 2)
+            masks, _ = self.decode(feats, boxes.reshape(b, 2, 2), labels)
+            size = (self.cfg.img_size, self.cfg.img_size)
+            return F.interpolate(masks[:, :1], size=size, mode="bilinear",
+                                 align_corners=False)
+
     def decode(self, features, coords, labels):
-        """features (1, g, g, C); coords (B, N, 2) in the model input
-        frame; labels (B, N). Every token is attended (the official
+        """features (1 or B, g, g, C); coords (B, N, 2) in the model
+        input frame; labels (B, N). Every token is attended (the official
         predictor's single label -1 pad point is a real token)."""
         pe_mod = self.prompt_encoder
         dt = features.dtype

@@ -22,6 +22,14 @@ layers update their running statistics once, models/norm.py).
 step's spans (`train.*`, utils/profiling.py `span`) among its events.
 An Orbax `init_checkpoint` raises (train/config.py `check_supported`).
 
+SAM ViT-B (`encoder` "sam_vit_b", a `Sam` model) trains through the
+same step as a MedSAM box-prompted fine-tune: after the augmentation's
+draws the step draws each sample's box prompt from its augmented mask on
+the device (`mask_boxes`, jittered by `BOX_JITTER`), and the model runs in
+its own compute dtype on the NHWC frames, outside autocast, its
+normalisation `augment_batch`'s ImageNet one. Only the image encoder and
+the mask decoder are updated (`param_groups`). It trains in one process.
+
 Data parallelism (`use_mesh` under an initialised process group,
 parallel/mesh.py): the model trains inside
 `DistributedDataParallel(broadcast_buffers=False)`, its BatchNorm layers
@@ -77,6 +85,7 @@ from cartseg_tpu_torch.models.factory import build_model, param_groups
 from cartseg_tpu_torch.models.norm import remat_contexts, sync_batch_norm
 from cartseg_tpu_torch.models.pretrained import (load_encoder_state_dict,
                                                  load_pretrained_encoder)
+from cartseg_tpu_torch.models.sam import Sam, strip_mask_downscaling
 from cartseg_tpu_torch.parallel import mesh
 from cartseg_tpu_torch.train import checkpoint as ckpt_lib
 from cartseg_tpu_torch.train.config import (SourceSpec, TrainConfig,
@@ -142,6 +151,65 @@ def resolve_loss(spec, group=None) -> Callable:
     return f
 
 
+# MedSAM's box prompt: each side of a mask's box moves outward by a
+# uniform integer in [0, BOX_JITTER] px
+BOX_JITTER = 20
+
+
+def check_promptable(cfg: TrainConfig, group) -> None:
+    """Raise for what a SAM fine-tune does not run: a non-square or
+    unpatched input, frames not normalised as SAM's `preprocess` does
+    (`imagenet_norm`: its pixel mean and std are ImageNet's times 255), a
+    UNet decoder variant, more than one class, a pretrained UNet encoder,
+    remat, and a training `group` of several processes."""
+    todo = []
+    h, w = cfg.img_size
+    if h != w or h % 16:
+        todo.append(f"img_size {cfg.img_size} (square, a multiple of the "
+                    "16-px patch)")
+    if not cfg.imagenet_norm:
+        todo.append("no imagenet_norm (SAM's own pixel normalisation)")
+    if cfg.decoder != "unet" or cfg.classes != 1:
+        todo.append(f"decoder {cfg.decoder!r} and {cfg.classes} classes "
+                    "(its own mask decoder, one mask)")
+    if cfg.pretrained_encoder or cfg.remat:
+        todo.append("pretrained_encoder or remat")
+    if group is not None:
+        todo.append("data parallelism (it trains in one process)")
+    if todo:
+        raise NotImplementedError(
+            f"cartseg_tpu_torch does not fine-tune {cfg.encoder} with: "
+            + "; ".join(todo))
+
+
+def mask_boxes(masks: torch.Tensor, gen: Optional[torch.Generator],
+               jitter: int) -> torch.Tensor:
+    """One box prompt a sample, as MedSAM draws it: the bounding box
+    (x0, y0, x1, y1) of the foreground (> 0.5) of each [B,H,W,1] mask in
+    pixel indices, each side moved outward by a uniform integer in
+    [0, jitter] (one [B, 4] draw from `gen` in that order; none when
+    jitter is 0), clipped to [0, W] x [0, H]; a mask with no foreground
+    takes the whole frame (0, 0, W, H). float32 [B, 4] on the masks'
+    device, without a host sync."""
+    fg = masks[..., 0] > 0.5
+    B, H, W = fg.shape
+    dev = masks.device
+    rows, cols = fg.any(2), fg.any(1)
+    ys = torch.arange(H, device=dev)
+    xs = torch.arange(W, device=dev)
+    empty = ~rows.any(1)
+    x0 = torch.where(empty, 0, torch.where(cols, xs, W).amin(1))
+    y0 = torch.where(empty, 0, torch.where(rows, ys, H).amin(1))
+    x1 = torch.where(empty, W, torch.where(cols, xs, -1).amax(1))
+    y1 = torch.where(empty, H, torch.where(rows, ys, -1).amax(1))
+    if jitter > 0:
+        d = torch.randint(0, jitter + 1, (B, 4), generator=gen, device=dev)
+        x0, y0, x1, y1 = x0 - d[:, 0], y0 - d[:, 1], x1 + d[:, 2], \
+            y1 + d[:, 3]
+    return torch.stack([x0.clamp(0, W), y0.clamp(0, H), x1.clamp(0, W),
+                        y1.clamp(0, H)], 1).to(torch.float32)
+
+
 def epoch_order(seed: int, epoch: int, n: int) -> np.ndarray:
     """The epoch plan: the JAX engine's seeded permutation
     (engine.py:501-503), so both frameworks visit samples in one order."""
@@ -187,7 +255,15 @@ class Trainer:
         check_supported(cfg)
         self.cfg = cfg
         self.bn_lane = bn_lane
+        # raises early if the encoder, decoder or lane is unknown; a
+        # box-prompted model (SAM) has the step derive its prompts
+        with torch.device("meta"):
+            model = build_model(cfg.encoder, cfg.classes, bn_lane,
+                                cfg.decoder, img_size=cfg.img_size[0])
+        self.promptable = isinstance(model, Sam)
         self.group = mesh.training_group(cfg.use_mesh, cfg.batch_size)
+        if self.promptable:
+            check_promptable(cfg, self.group)
         self.world = mesh.world_size(self.group)
         self.device = resolve_device(
             mesh.local_device(cfg.device) if self.group is not None
@@ -198,8 +274,6 @@ class Trainer:
             cfg.augment, AugmentConfig.none)(cfg.imagenet_norm)
         self.val_aug_cfg = AugmentConfig.none(cfg.imagenet_norm)
         self.loss_fn = resolve_loss(cfg.loss, self.group)
-        # raises early if the encoder, decoder or lane is unknown
-        build_model(cfg.encoder, cfg.classes, bn_lane, cfg.decoder)
 
     # ------------------------------------------------------------ setup
 
@@ -211,11 +285,14 @@ class Trainer:
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(cfg.seed)
             model = build_model(cfg.encoder, cfg.classes, self.bn_lane,
-                                cfg.decoder)
+                                cfg.decoder, img_size=cfg.img_size[0],
+                                dtype=self.dtype)
         if cfg.init_torch_checkpoint:
             sd = torch.load(cfg.init_torch_checkpoint, map_location="cpu",
                             weights_only=True)
-            model.load_state_dict(sd.get("model_state_dict", sd))
+            # an official SAM checkpoint holds the mask-prompt path too
+            model.load_state_dict(strip_mask_downscaling(
+                sd.get("model_state_dict", sd)))
         if cfg.pretrained_encoder:
             # encoder_weights="imagenet" from the user's file, after the
             # init checkpoint, as the JAX engine orders them
@@ -224,7 +301,7 @@ class Trainer:
                 model, load_encoder_state_dict(cfg.pretrained_encoder),
                 cfg.encoder)
         model = model.to(self.device)
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and not self.promptable:
             # NHWC storage: the augmented batch already is NHWC, and
             # cuDNN needs no layout transposes around the convolutions
             model = model.to(memory_format=torch.channels_last)
@@ -328,12 +405,16 @@ class Trainer:
 
     # ------------------------------------------------------------ steps
 
-    def _forward(self, model, x_nhwc, ddp=None):
+    def _forward(self, model, x_nhwc, ddp=None, boxes=None):
         """NHWC float input -> NHWC float32 logits [B,H,W,C]. With remat,
         a train-mode forward that records a graph keeps no activations
         and runs again in the backward (the JAX jax.checkpoint of the
         forward, engine.py:296-297). `ddp`: the DDP module that runs the
-        train forward under data parallelism."""
+        train forward under data parallelism. A promptable model takes
+        the NHWC frames and `boxes` ([B, 4], `mask_boxes`) and computes
+        in its own dtype, outside autocast."""
+        if self.promptable:
+            return model(x_nhwc, boxes).to(torch.float32).permute(0, 2, 3, 1)
         x = x_nhwc.permute(0, 3, 1, 2)
         with torch.autocast(self.device.type, dtype=self.dtype,
                             enabled=self.dtype != torch.float32):
@@ -357,18 +438,25 @@ class Trainer:
         global batch's. The step is the span `train.step` around the
         spans `train.augment`, `.forward`, `.loss`, `.backward` (DDP's
         loss all-reduce included) and `.optimizer` (clip, the non-finite
-        gate, AdamW; utils/profiling.py `span`)."""
+        gate, AdamW; utils/profiling.py `span`). A promptable model's box
+        prompts are drawn in `train.augment`, after the augmentation's
+        draws, and only the parameters with a group (`gids`) are
+        differentiated and updated."""
         cfg, dev = self.cfg, self.device
         model = state.model.train()
         n = images_u8.shape[0] * self.world
         rows = mesh.host_batch_slice(n) if state.ddp is not None else None
         params = state.params
+        if self.promptable:
+            params = {k: p for k, p in params.items() if k in gids}
         with span("train.step", dev):
             with span("train.augment", dev):
                 imgs, m = augment_batch(state.gen, images_u8, masks,
                                         self.aug_cfg, rows, n)
+                boxes = mask_boxes(m, state.gen, BOX_JITTER) \
+                    if self.promptable else None
             with span("train.forward", dev):
-                logits = self._forward(model, imgs, state.ddp)
+                logits = self._forward(model, imgs, state.ddp, boxes)
             with span("train.loss", dev):
                 loss, comps = self.loss_fn(logits, m, sample_w)
             with span("train.backward", dev):
@@ -416,6 +504,11 @@ class Trainer:
             self.group)
         return vals[0], dict(zip(keys, vals[1:]))
 
+    def _val_boxes(self, masks):
+        """A promptable model's validation prompts: each mask's own box,
+        unjittered (None for the UNets)."""
+        return mask_boxes(masks, None, 0) if self.promptable else None
+
     @torch.no_grad()
     def eval_step(self, state: TrainState, images_u8, masks, w):
         """Val loss and weighted metric sums; w: per-sample weights [B]
@@ -426,7 +519,7 @@ class Trainer:
         model = state.model.eval()
         imgs = normalize_batch(images_u8.to(torch.float32),
                                self.val_aug_cfg.mean, self.val_aug_cfg.std)
-        logits = self._forward(model, imgs)
+        logits = self._forward(model, imgs, boxes=self._val_boxes(masks))
         loss, _ = self.loss_fn(logits, masks, w)
         sums, n = M.eval_suite_sums(logits, masks, w)
         if self.group is not None:
@@ -443,7 +536,7 @@ class Trainer:
         model = state.model.eval()
         imgs = normalize_batch(images_u8.to(torch.float32),
                                self.val_aug_cfg.mean, self.val_aug_cfg.std)
-        logits = self._forward(model, imgs)
+        logits = self._forward(model, imgs, boxes=self._val_boxes(masks))
         d, i, n = M.threshold_sweep_sums(logits, masks, thresholds, w)
         if self.group is not None:
             v = mesh.all_reduce_sum(torch.cat(
